@@ -1,0 +1,744 @@
+"""Fused cell-layout SPH step (torch port of the JAX package's
+``ops/fused_cell.py``).
+
+Layout, as in the JAX package:
+
+* every field travels as a HALO'D CORE ``(nyp+2, K, nx+2)`` -- cell row,
+  slot rank, cell column with wrapped x-halo columns -- or as a PLAIN core
+  ``(nyp, K, nx)``;
+* empty slots ride at x = ``_BIG_X``, so the r^2 window test alone masks
+  them, and the self pair drops out through r^2 == 0;
+* ``occ`` bounds the anchor ranks each row group visits (``plan`` defines
+  the groups); skipped ranks keep zeroed outputs and their positions.
+
+One physics step is four sweeps (density, kernel gradient correction,
+forces + kick, continuity + positions). Each of the three entry points --
+``fused_step_cores``, ``fused_chunk_call`` and ``fused_wall_shear_cores``
+-- launches its hand-written CUDA kernel (``fused_cell_cuda``) for CUDA
+tensors and runs its plain PyTorch twin (``*_plain`` below) for CPU
+tensors. The twins build the ``(nyp, 9K, nx)`` window stacks by slicing
+the halo'd cores and do the sweep algebra as tensor ops, in the JAX
+package's operation order; they are what the kernels are held to.
+
+The rebuild glue (slot assignment, packed scatter, takes) and the drift
+guard are plain torch, as they are XLA in the JAX package.
+"""
+
+from __future__ import annotations
+
+import os
+from typing import NamedTuple
+
+import torch
+
+from . import fused_cell_cuda
+from .kernels import sigma_2d, w0
+from .neighbors import GridSpec
+
+_BIG_X = 1.0e9   # x-core fill for empty slots: past the cutoff from all
+
+
+def plan(spec: GridSpec):
+    """(R, L, n_groups, nyp): R cell rows per row group, as the JAX
+    package picks them. On the GPU R only defines the ``occ`` row groups
+    (the anchor-rank bound is a max over the group's rows), which decides
+    the values left in never-visited empty slots -- so it must match the
+    JAX package for whole-core comparisons."""
+    nx, ny = spec.nx, spec.ny
+    forced = (int(os.environ.get("SPH_PLAN_R", "0"))
+              or int(getattr(spec, "plan_r", 0)))
+    if forced > 0:
+        R = min(forced, 8)
+        n_groups = -(-ny // R)
+        return R, R * nx, n_groups, R * n_groups
+    if nx >= 100:
+        return 1, nx, ny, ny
+    best = None
+    for R in range(1, 9):
+        L = R * nx
+        cost = -(-L // 128) * 128 * (-(-ny // R))
+        if best is None or cost < best[0]:
+            best = (cost, R)
+    R = best[1]
+    n_groups = -(-ny // R)
+    return R, R * nx, n_groups, R * n_groups
+
+
+class FusedLayout(NamedTuple):
+    """Per-rebuild state of the fused engine: scatter/take indices and the
+    static halo'd cores (the layout-level ghost entries,
+    sph_neighbor_search_mex.c:267-295)."""
+
+    pidx: torch.Tensor   # (n,) int64 flat index into (nyp, K, nx)
+    hidx: torch.Tensor   # (n,) int64 flat index into (nyp+2, K, nx+2)
+    isf_c: torch.Tensor  # halo'd 1.0-fluid mask core (0.0 wall/empty)
+    mass_c: torch.Tensor
+    wvx_c: torch.Tensor  # prescribed wall velocity
+    wvy_c: torch.Tensor
+    wbot_c: torch.Tensor  # bottom/top wall membership masks
+    wtop_c: torch.Tensor
+    refx_p: torch.Tensor  # PLAIN position cores at rebuild
+    refy_p: torch.Tensor
+    occ: torch.Tensor     # (n_groups, 1) int32 anchor-rank bound per group
+    overflow: torch.Tensor  # 0-dim bool
+
+
+def _scatter(n_slots: int, idx, vals, fill):
+    """Packed scatter with the JAX ``mode="drop"`` semantics: indices
+    equal to ``n_slots`` (the overflow sentinel) land in a spare row that
+    is cut off."""
+    flat = torch.empty((n_slots + 1,) + tuple(vals.shape[1:]),
+                       dtype=vals.dtype, device=vals.device)
+    flat[:] = torch.as_tensor(fill, dtype=vals.dtype, device=vals.device)
+    flat[idx] = vals
+    return flat[:n_slots]
+
+
+def make_plain(spec: GridSpec, pidx, vals, fill: float = 0.0):
+    """Packed scatter of a per-particle array into the PLAIN (nyp, K, nx)
+    core (no halo)."""
+    nyp = plan(spec)[3]
+    nx, K = spec.nx, spec.K
+    return _scatter(nyp * K * nx, pidx, vals, fill).reshape(nyp, K, nx)
+
+
+def halo_ify(spec: GridSpec, plain, fill: float = 0.0,
+             xshift: float = 0.0):
+    """PLAIN (nyp, K, nx) core -> halo'd (nyp+2, K, nx+2): wrapped x
+    columns (zeroed for nx < 3) + ``fill`` y-halo rows. ``xshift`` (the x
+    POSITION core passes DL) makes the halo columns hold the TRANSLATED
+    copies x -+ DL, the reference's ghost-entry translation
+    (sph_neighbor_search_mex.c:282-295)."""
+    nyp, K, nx = plain.shape
+    if nx >= 3:
+        left, right = plain[:, :, -1:] - xshift, plain[:, :, :1] + xshift
+    else:
+        left = right = torch.full((nyp, K, 1), fill, dtype=plain.dtype,
+                                  device=plain.device)
+    c = torch.cat([left, plain, right], dim=2)
+    pad = torch.full((1, K, nx + 2), fill, dtype=plain.dtype,
+                     device=plain.device)
+    return torch.cat([pad, c, pad], dim=0)
+
+
+def make_core(spec: GridSpec, pidx, vals, fill: float = 0.0,
+              xshift: float = 0.0):
+    """Packed scatter of a per-particle array into the halo'd core."""
+    return halo_ify(spec, make_plain(spec, pidx, vals, fill), fill,
+                    xshift=xshift)
+
+
+def _packed_cores(spec: GridSpec, pidx, fields, fills):
+    """Scatter F per-particle arrays into plain cores with ONE packed
+    scatter. Returns a list of (nyp, K, nx) plain cores."""
+    nyp = plan(spec)[3]
+    nx, K = spec.nx, spec.K
+    pack = torch.stack(fields, dim=-1)
+    fill_row = torch.as_tensor(fills, dtype=pack.dtype, device=pack.device)
+    out = _scatter(nyp * K * nx, pidx, pack, fill_row)
+    out = out.reshape(nyp, K, nx, len(fields))
+    return [out[..., f].contiguous() for f in range(len(fields))]
+
+
+def build_fused_layout(spec: GridSpec, x, y, mass, wall_vx, wall_vy,
+                       wall_y, state_fields=()) -> FusedLayout:
+    """Slot assignment + static cores. ``state_fields`` optionally rides
+    extra per-particle arrays through the SAME packed scatter (the
+    in-loop rebuild scatters vx/vy/drho this way); their plain cores are
+    returned as a second value."""
+    from .cellgrid import assign_slots
+
+    R, L, n_groups, nyp = plan(spec)
+    n, nx, K = spec.n_total, spec.nx, spec.K
+    dev = x.device
+    slot, overflow = assign_slots(spec, x, y)
+    cell = slot // K
+    k = slot % K
+    iy = cell // nx
+    ix = cell - iy * nx
+    in_range = slot < spec.n_cells * K  # overflow sentinel -> dropped
+    pidx = torch.where(in_range, (iy * K + k) * nx + ix,
+                       torch.full_like(slot, nyp * K * nx))
+    hidx = torch.where(in_range, ((iy + 1) * K + k) * (nx + 2) + ix + 1,
+                       torch.full_like(slot, (nyp + 2) * K * (nx + 2)))
+
+    # per-row-group anchor-rank bound: the max occupancy of any cell in
+    # the group's R rows (sph_neighbor_search_mex.c:69-113)
+    ones = torch.zeros(spec.n_cells, dtype=torch.int32, device=dev)
+    ones.scatter_add_(0, torch.clamp(cell, max=spec.n_cells - 1),
+                      in_range.to(torch.int32))
+    occ_rows = torch.zeros((nyp, nx), dtype=torch.int32, device=dev)
+    occ_rows[:spec.ny] = ones.reshape(spec.ny, nx)
+    occ = torch.amax(occ_rows.reshape(n_groups, R * nx), dim=1,
+                     keepdim=True)
+    occ = torch.clamp(occ, max=K).to(torch.int32)
+
+    fdtype = x.dtype
+    is_fluid = (torch.arange(n, device=dev) < spec.n_fluid).to(fdtype)
+    is_wall = 1.0 - is_fluid
+    fields = [is_fluid, is_wall, mass, wall_vx, wall_vy,
+              is_wall * (wall_y <= 0.0).to(fdtype),
+              is_wall * (wall_y >= spec.DH).to(fdtype),
+              x, y] + list(state_fields)
+    fills = [0.0] * 7 + [_BIG_X, 0.0] + [0.0] * len(state_fields)
+    cores = _packed_cores(spec, pidx, fields, fills)
+    lay = FusedLayout(
+        pidx=pidx, hidx=hidx,
+        isf_c=halo_ify(spec, cores[0]),
+        mass_c=halo_ify(spec, cores[2]),
+        wvx_c=halo_ify(spec, cores[3]),
+        wvy_c=halo_ify(spec, cores[4]),
+        wbot_c=halo_ify(spec, cores[5]),
+        wtop_c=halo_ify(spec, cores[6]),
+        refx_p=cores[7], refy_p=cores[8],
+        occ=occ, overflow=overflow)
+    if state_fields:
+        return lay, cores[9:]
+    return lay
+
+
+def take_h(lay: FusedLayout, core):
+    """Collect a halo'd core back to particle order (one packed take).
+    The overflow sentinel is clamped, as the JAX gather clamps it."""
+    flat = core.reshape(-1)
+    return flat[torch.clamp(lay.hidx, max=flat.numel() - 1)]
+
+
+def take_p(lay: FusedLayout, core):
+    """Collect a plain core back to particle order (one packed take)."""
+    flat = core.reshape(-1)
+    return flat[torch.clamp(lay.pidx, max=flat.numel() - 1)]
+
+
+# ---------------------------------------------------------------------------
+# candidate-validity guard (plain torch; XLA-side in the JAX package)
+# ---------------------------------------------------------------------------
+
+
+def pair_drift_bounds(spec: GridSpec, lay: FusedLayout, x2P, y2P):
+    """Per-axis upper bounds (bx, by) on the PAIR-RELATIVE displacement
+    since the rebuild (JAX ``pair_drift_bounds``, fused_cell.py:1786-1849):
+    fluid slots contribute their drift, wall slots anchor the range at 0,
+    empty slots are excluded; the max over 2-row x 2-column (x-wrapped)
+    windows of the per-slot displacement range bounds every candidate
+    pair. Candidates stay valid while bx <= skin_x and by <= skin_y."""
+    nyp = plan(spec)[3]
+    nx = spec.nx
+    fl = lay.isf_c[1:nyp + 1, :, 1:nx + 1] > 0
+    occm = lay.refx_p < 0.5 * _BIG_X
+    big = torch.tensor(1e30, dtype=x2P.dtype, device=x2P.device)
+    zero = torch.zeros((), dtype=x2P.dtype, device=x2P.device)
+    d = torch.stack([x2P - lay.refx_p, y2P - lay.refy_p])  # (2, nyp, K, nx)
+    dmax = torch.where(fl, d, torch.where(occm, zero, -big))
+    dmin = torch.where(fl, d, torch.where(occm, zero, big))
+    mx = torch.amax(dmax, dim=2)          # (2, nyp, nx) over slot rank
+    mn = torch.amin(dmin, dim=2)
+    mx = torch.maximum(mx[:, :-1], mx[:, 1:])     # 2-row windows
+    mn = torch.minimum(mn[:, :-1], mn[:, 1:])
+    if nx >= 3:
+        mx = torch.maximum(mx, torch.roll(mx, -1, dims=2))  # 2-col,
+        mn = torch.minimum(mn, torch.roll(mn, -1, dims=2))  # x-wrapped
+    else:
+        mx = torch.amax(mx, dim=2, keepdim=True)
+        mn = torch.amin(mn, dim=2, keepdim=True)
+    b = torch.amax(torch.clamp(mx - mn, min=0.0), dim=(1, 2))
+    return b[0], b[1]
+
+
+def pair_drift_exceeded(spec: GridSpec, lay: FusedLayout, x2P, y2P):
+    """True iff a per-axis drift bound exceeds its budget."""
+    if spec.skin <= 0.0:
+        return torch.zeros((), dtype=torch.bool, device=x2P.device)
+    bx, by = pair_drift_bounds(spec, lay, x2P, y2P)
+    return torch.logical_or(bx > spec.skin_x, by > spec.skin_y)
+
+
+# ---------------------------------------------------------------------------
+# plain PyTorch twins of the sweeps
+# ---------------------------------------------------------------------------
+
+
+def _win(spec: GridSpec, core):
+    """Halo'd core -> (nyp, 1, 9K, nx) candidate windows, (dy, dx, k) order
+    (the JAX package's _stage, fused_cell.py:251-263)."""
+    nyp, nx = core.shape[0] - 2, spec.nx
+    w = torch.cat([core[dy:dy + nyp, :, dx:dx + nx]
+                   for dy in range(3) for dx in range(3)], dim=1)
+    return w.unsqueeze(1)
+
+
+def _anc(core):
+    """Halo'd core -> (nyp, K, nx) anchor (center) values."""
+    return core[1:-1, :, 1:-1]
+
+
+def _pair(a):
+    """(nyp, K, nx) anchor values -> (nyp, K, 1, nx) for pair math."""
+    return a.unsqueeze(2)
+
+
+def _visited(spec: GridSpec, occ, nyp: int):
+    """(nyp, K, 1) mask of the anchor ranks the row groups visit."""
+    R = plan(spec)[0]
+    occ_rows = occ[:, 0].repeat_interleave(R)[:nyp]
+    ks = torch.arange(spec.K, device=occ.device)
+    return (ks[None, :] < occ_rows[:, None]).unsqueeze(2)
+
+
+def _geometry(spec: GridSpec, xa, ya, xv, yv, isfv, need_w=True):
+    """Masked pair geometry (r, ex, ey, w, dw, m1, mw) of the anchors vs
+    the candidate windows (JAX _geometry, fused_cell.py:300-344)."""
+    h = spec.h
+    dx = xa - xv
+    if spec.nx < 3:
+        dx = dx - spec.DL * torch.round(dx / spec.DL)
+    dy = ya - yv
+    r2 = dx * dx + dy * dy
+    fvalid = ((r2 < spec.cutoff * spec.cutoff) & (r2 > 1e-24)).to(xa.dtype)
+    rs = torch.rsqrt(torch.clamp(r2, min=1e-24))
+    r = r2 * rs
+    sigma = sigma_2d(h)
+    q = r / h
+    tq = 2.0 - q
+    zero = torch.zeros((), dtype=q.dtype, device=q.device)
+    w = None
+    if need_w:
+        w = torch.where(q < 1.0,
+                        sigma * (1.0 - 1.5 * q * q + 0.75 * (q * q * q)),
+                        torch.where(q < 2.0, sigma * 0.25 * (tq * tq * tq),
+                                    zero))
+        w = w * fvalid
+    soh = sigma / h
+    dw = torch.where(q < 1.0, q * (2.25 * soh * q - 3.0 * soh),
+                     torch.where(q < 2.0, -0.75 * soh * tq * tq, zero))
+    m1 = fvalid * isfv
+    mw = fvalid - m1
+    return r, dx * rs, dy * rs, w, dw, m1, mw
+
+
+def _step_plain(spec: GridSpec, cores, occ, dt, scalars):
+    """One fused step on cores (the four sweeps of the JAX _kernel_body,
+    fused_cell.py:604-1078). ``cores``: x y vx vy (halo'd), dr (plain),
+    isf mass wvx wvy (halo'd). ``dt``/``g``/``mu``/``wf``: 0-dim tensors.
+    Returns a dict of output cores with ``cnt`` per slot (nyp, K, nx)."""
+    (rho0, p0, c_f, inv_sigma0, transport_coeff, g, mu, wf) = scalars
+    (xC, yC, vxC, vyC, drP, isfC, massC, wvxC, wvyC) = cores
+    h = spec.h
+    nyp = xC.shape[0] - 2
+    vis = _visited(spec, occ, nyp)
+    zero = torch.zeros((), dtype=xC.dtype, device=xC.device)
+
+    def keep(v):     # zero the never-visited anchor ranks
+        return torch.where(vis, v, zero)
+
+    def halo(v):     # _flush of a halo'd output: wrapped x columns
+        return halo_ify(spec, keep(v))
+
+    xv, yv, isfv = _win(spec, xC), _win(spec, yC), _win(spec, isfC)
+    xa, ya = _pair(_anc(xC)), _pair(_anc(yC))
+    af = _anc(isfC)
+    massa = _anc(massC)
+    mass_safe = torch.where(massa > 0, massa, 1.0)
+    fl = af > 0
+
+    # ---- sweep 0: density (sph_physics_mex.c:178-234) ----
+    r, ex, ey, w, dw, m1, mw = _geometry(spec, xa, ya, xv, yv, isfv)
+    massv = _win(spec, massC)
+    sig_inner = w0(h) + torch.sum(w * m1, dim=2)
+    sig_contact = torch.sum(w * (massv * (1.0 / rho0)) * mw, dim=2)
+    rho = (sig_inner * rho0 * inv_sigma0
+           + sig_contact * rho0 * rho0 * inv_sigma0 / mass_safe)
+    rho = torch.where(rho <= 1e-12, rho0, rho)
+    rho = torch.where(fl, rho, rho0)   # walls keep rho0
+    vol = mass_safe / rho
+    rk = rho + 0.5 * dt * drP          # stage-1 half-kick + EOS (c:857-865)
+    rho_half = torch.where(fl, torch.where(rk < 1e-10, rho0, rk), rho)
+    p_half = torch.where(fl, p0 * (rho_half / rho0 - 1.0), zero)
+    # reference pair-count convention (fluid-rooted, store-once)
+    cnt = keep(af * (0.5 * torch.sum(m1, dim=2) + torch.sum(mw, dim=2)))
+    volO, rhoH, pH = halo(vol), halo(rho_half), halo(p_half)
+
+    # ---- sweep 1: kernel gradient correction (c:239-365) ----
+    volv = _win(spec, volO)
+    rf = r * dw * volv * (m1 + mw)
+    a11 = -torch.sum(rf * ex * ex, dim=2)
+    a12 = -torch.sum(rf * ex * ey, dim=2)
+    a22 = -torch.sum(rf * ey * ey, dim=2)
+    a21 = a12
+    ata11 = a11 * a11 + a21 * a21 + 1e-8
+    ata12 = a11 * a12 + a21 * a22
+    ata22 = a12 * a12 + a22 * a22 + 1e-8
+    det_m = ata11 * ata22 - ata12 * ata12
+    degen = torch.abs(det_m) < 1e-20
+    det_safe = torch.where(degen, 1.0, det_m)
+    im11 = ata22 / det_safe
+    im12 = -ata12 / det_safe
+    im22 = ata11 / det_safe
+    p11 = torch.where(degen, 1.0, im11 * a11 + im12 * a12)
+    p12 = torch.where(degen, 0.0, im11 * a21 + im12 * a22)
+    p21 = torch.where(degen, 0.0, im12 * a11 + im22 * a12)
+    p22 = torch.where(degen, 1.0, im12 * a21 + im22 * a22)
+    det_a = a11 * a22 - a12 * a21
+    det_sqr = torch.clamp(1.0 - det_a, min=0.0)
+    denom = det_a + det_sqr
+    small = torch.abs(denom) < 1e-12
+    denom_safe = torch.where(small, 1.0, denom)
+    w1 = torch.where(small, 0.0, det_a / denom_safe)
+    w2 = torch.where(small, 1.0, det_sqr / denom_safe)
+    b11O = halo(torch.where(fl, w1 * p11 + w2, 1.0))
+    b12O = halo(torch.where(fl, w1 * p12, 0.0))
+    b21O = halo(torch.where(fl, w1 * p21, 0.0))
+    b22O = halo(torch.where(fl, w1 * p22 + w2, 1.0))
+
+    # ---- sweep 2: viscous + shifting + Riemann pressure + kick
+    #      (c:466-545, :633-709, :867-957, :1388-1409) ----
+    volv = _win(spec, volO)
+    dwv = dw * volv
+    dwv1 = dwv * m1
+    dwvw = dwv * mw
+    vola = _anc(volO)
+    vxa, vxv = _pair(_anc(vxC)), _win(spec, vxC)
+    vya, vyv = _pair(_anc(vyC)), _win(spec, vyC)
+    b11a, b11v = _pair(_anc(b11O)), _win(spec, b11O)
+    b12a, b12v = _pair(_anc(b12O)), _win(spec, b12O)
+    b21a, b21v = _pair(_anc(b21O)), _win(spec, b21O)
+    b22a, b22v = _pair(_anc(b22O)), _win(spec, b22O)
+    rhoha, rhohv = _pair(_anc(rhoH)), _win(spec, rhoH)
+    pha, phv = _pair(_anc(pH)), _win(spec, pH)
+    wvxv, wvyv = _win(spec, wvxC), _win(spec, wvyC)
+    inv_denom = 1.0 / (r + 0.01 * h)
+    tx_f = (b11a + b11v) * ex + (b12a + b12v) * ey
+    ty_f = (b21a + b21v) * ex + (b22a + b22v) * ey
+    tx_w = b11a * ex + b12a * ey
+    ty_w = b21a * ex + b22a * ey
+    ebe_f = ex * tx_f + ey * ty_f
+    ebe_w = ex * tx_w + ey * ty_w
+    cf_p = ebe_f * mu * inv_denom * dwv1
+    cw_p = wf * ebe_w * mu * inv_denom * dwvw
+    acc_x = torch.sum(cf_p * (vxa - vxv) + cw_p * (vxa - wvxv), dim=2)
+    acc_y = torch.sum(cf_p * (vya - vyv) + cw_p * (vya - wvyv), dim=2)
+    fpx = torch.where(fl, acc_x * vola + massa * g, zero)
+    fpy = torch.where(fl, acc_y * vola, zero)
+    inc_x = torch.sum(-dwv1 * tx_f - 2.0 * dwvw * tx_w, dim=2)
+    inc_y = torch.sum(-dwv1 * ty_f - 2.0 * dwvw * ty_w, dim=2)
+    limiter = torch.clamp(
+        100.0 * (inc_x * inc_x + inc_y * inc_y) / (h * h), 0.0, 1.0)
+    shift = transport_coeff * h * h * limiter * af
+    rho_bar = 0.5 * (rhoha + rhohv)
+    un_l = vxa * ex + vya * ey
+    un_r = vxv * ex + vyv * ey
+    beta = torch.clamp(3.0 * torch.clamp(un_l - un_r, min=0.0), max=c_f)
+    p_avg = 0.5 * (pha + phv)
+    p_star = p_avg + 0.5 * beta * rho_bar * (un_l - un_r)
+    p_face = 0.5 * (p_avg + p_star)
+    ax_prior = _pair(fpx / mass_safe)
+    ay_prior = _pair(fpy / mass_safe)
+    face_acc = -(ax_prior * ex + ay_prior * ey)
+    p_wall = pha + rhoha * r * torch.clamp(face_acc, min=0.0)
+    pacc_x = -torch.sum(p_face * tx_f * dwv1 + (pha + p_wall) * tx_w * dwvw,
+                        dim=2)
+    pacc_y = -torch.sum(p_face * ty_f * dwv1 + (pha + p_wall) * ty_w * dwvw,
+                        dim=2)
+    fx = torch.where(fl, pacc_x * vola, zero)
+    fy = torch.where(fl, pacc_y * vola, zero)
+    inv_m = 1.0 / mass_safe
+    vx2 = torch.where(fl, _anc(vxC) + (fpx + fx) * inv_m * dt, zero)
+    vy2 = torch.where(fl, _anc(vyC) + (fpy + fy) * inv_m * dt, zero)
+    vx2O, vy2O = halo(vx2), halo(vy2)
+    dxs, dys = keep(shift * inc_x), keep(shift * inc_y)
+
+    # ---- sweep 3: continuity + finalize + positions (c:1073-1116,
+    #      :1429-1451; SPH_Poiseuille.m:254-283 ordering) ----
+    vx2a, vx2v = _pair(_anc(vx2O)), _win(spec, vx2O)
+    vy2a, vy2v = _pair(_anc(vy2O)), _win(spec, vy2O)
+    u_jump_f = (vx2a - vx2v) * ex + (vy2a - vy2v) * ey
+    u_jump_w = 2.0 * ((vx2a - wvxv) * ex + (vy2a - wvyv) * ey)
+    rate = torch.sum(u_jump_f * dwv1 + u_jump_w * dwvw, dim=2)
+    rho_h = _anc(rhoH)
+    drho_new = torch.where(fl, rate * rho_h, zero)
+    rho_new = rho_h + 0.5 * dt * drho_new
+    rho_new = torch.where(rho_new < 1e-10, rho0, rho_new)
+    rho_new = torch.where(fl, rho_new, rho_h)
+    p_new = torch.where(fl, p0 * (rho_new / rho0 - 1.0), zero)
+    xc, yc = _anc(xC), _anc(yC)
+    x2 = xc + dxs + 0.5 * dt * (_anc(vxC) + _anc(vx2O))
+    y2 = yc + dys + 0.5 * dt * (_anc(vyC) + _anc(vy2O))
+    x2 = torch.where(vis & fl, x2, xc)   # walls, empty and skipped slots
+    y2 = torch.where(vis & fl, y2, yc)   # keep their positions
+
+    return dict(volH=volO, b11H=b11O, b12H=b12O, b21H=b21O, b22H=b22O,
+                vxH=vx2O, vyH=vy2O, rhoP=keep(rho_new), pP=keep(p_new),
+                drP=keep(drho_new), fxP=keep(fx), fyP=keep(fy),
+                fpxP=keep(fpx), fpyP=keep(fpy), xP=x2, yP=y2, cnt=cnt)
+
+
+def _scalar(v, like: torch.Tensor) -> torch.Tensor:
+    return torch.as_tensor(v, dtype=like.dtype, device=like.device)
+
+
+def _cnt_rows(spec: GridSpec, cnt_slot):
+    """Per-slot pair counts -> the JAX package's (n_groups, L) per-lane
+    rows (a sum over slot ranks)."""
+    R, L, n_groups, nyp = plan(spec)
+    return torch.sum(cnt_slot, dim=1).reshape(n_groups, L)
+
+
+def _check_device(t: torch.Tensor):
+    if t.device.type not in ("cpu", "cuda"):
+        raise ValueError(f"fused kernels take cpu or cuda tensors, got "
+                         f"{t.device}")
+
+
+def fused_step_cores_plain(spec: GridSpec, lay: FusedLayout, xH, yH, vxH,
+                           vyH, drP, dt, rho0: float, p0: float, c_f: float,
+                           inv_sigma0: float, transport_coeff: float, g, mu,
+                           wall_visc_factor: float = 4.0):
+    """Plain PyTorch twin of the fused step kernel (any device)."""
+    cores = [xH, yH, vxH, vyH, drP,
+             lay.isf_c, lay.mass_c, lay.wvx_c, lay.wvy_c]
+    scal = (rho0, p0, c_f, inv_sigma0, transport_coeff,
+            _scalar(g, xH), _scalar(mu, xH), _scalar(wall_visc_factor, xH))
+    o = _step_plain(spec, cores, lay.occ, _scalar(dt, xH), scal)
+    o["cnt"] = _cnt_rows(spec, o["cnt"])
+    return o
+
+
+def fused_step_cores(spec: GridSpec, lay: FusedLayout, xH, yH, vxH, vyH,
+                     drP, dt, rho0: float, p0: float, c_f: float,
+                     inv_sigma0: float, transport_coeff: float, g, mu,
+                     wall_visc_factor: float = 4.0):
+    """Core-level fused step (JAX ``fused_step_cores``): halo'd
+    position/velocity cores + plain drho_dt core in; a dict of output
+    cores (suffix H = halo'd, P = plain) + ``cnt`` (n_groups, L) out.
+    CUDA tensors launch the hand-written kernel, CPU tensors run the
+    plain twin."""
+    _check_device(xH)
+    if not xH.is_cuda:
+        return fused_step_cores_plain(
+            spec, lay, xH, yH, vxH, vyH, drP, dt, rho0, p0, c_f,
+            inv_sigma0, transport_coeff, g, mu, wall_visc_factor)
+    o = fused_cell_cuda.step(
+        spec, plan(spec)[0], lay, xH, yH, vxH, vyH, drP, dt,
+        (rho0, p0, c_f, inv_sigma0, transport_coeff, g, mu,
+         wall_visc_factor))
+    o["cnt"] = _cnt_rows(spec, o["cnt"])
+    return o
+
+
+def fused_cell_step(spec: GridSpec, lay: FusedLayout, x, y, vx, vy,
+                    drho_dt, dt, rho0: float, p0: float, c_f: float,
+                    inv_sigma0: float, transport_coeff: float, g, mu,
+                    wall_visc_factor: float = 4.0):
+    """Per-particle wrapper of ``fused_step_cores`` (scatter -> kernel ->
+    collect). Returns the per-particle dict of the JAX package's
+    ``fused_cell_step`` plus ``n_pairs`` (a 0-dim int32 tensor)."""
+    xH = make_core(spec, lay.pidx, x, fill=_BIG_X, xshift=spec.DL)
+    yH, vxH, vyH = (make_core(spec, lay.pidx, v) for v in (y, vx, vy))
+    drP = make_plain(spec, lay.pidx, drho_dt)
+    o = fused_step_cores(
+        spec, lay, xH, yH, vxH, vyH, drP, dt, rho0, p0, c_f, inv_sigma0,
+        transport_coeff, g, mu, wall_visc_factor)
+    n_pairs = torch.round(torch.sum(o["cnt"])).to(torch.int32)
+    return dict(rho=take_p(lay, o["rhoP"]), p=take_p(lay, o["pP"]),
+                drho_dt=take_p(lay, o["drP"]),
+                vx=take_h(lay, o["vxH"]), vy=take_h(lay, o["vyH"]),
+                fx=take_p(lay, o["fxP"]), fy=take_p(lay, o["fyP"]),
+                fpx=take_p(lay, o["fpxP"]), fpy=take_p(lay, o["fpyP"]),
+                vol=take_h(lay, o["volH"]), b11=take_h(lay, o["b11H"]),
+                b12=take_h(lay, o["b12H"]), b21=take_h(lay, o["b21H"]),
+                b22=take_h(lay, o["b22H"]),
+                x=take_p(lay, o["xP"]), y=take_p(lay, o["yP"]),
+                n_pairs=n_pairs)
+
+
+# ---------------------------------------------------------------------------
+# the multi-step chunk
+# ---------------------------------------------------------------------------
+
+_AUX = ("volH", "b11H", "b12H", "b21H", "b22H", "rhoP", "pP", "fxP", "fyP",
+        "fpxP", "fpyP")
+
+
+def _refresh(core_h, plain, xshift: float = 0.0):
+    """Write a plain core back into a halo'd working core: center plus
+    (nx >= 3) the translated x-halo columns; the y-halo rows are kept
+    (JAX _chunk_kernel, fused_cell.py:1680-1689)."""
+    out = core_h.clone()
+    nx = plain.shape[2]
+    out[1:-1, :, 1:-1] = plain
+    if nx >= 3:
+        out[1:-1, :, 0:1] = plain[:, :, nx - 1:nx] - xshift
+        out[1:-1, :, nx + 1:nx + 2] = plain[:, :, 0:1] + xshift
+    return out
+
+
+def chunk_dt_limits(spec: GridSpec, rho0: float, g, mu, like: torch.Tensor):
+    """The step-independent dt limits (viscous, body force) exactly as
+    the JAX chunk kernel rounds them (fused_cell.py:1596-1598)."""
+    nu = _scalar(mu, like) / rho0
+    tiny = _scalar(1e-12, like)
+    h = spec.h
+    dt_visc = _scalar(0.125 * h * h, like) / torch.maximum(nu, tiny)
+    dt_body = 0.25 * torch.sqrt(
+        _scalar(h, like) / torch.maximum(torch.abs(_scalar(g, like)), tiny))
+    return dt_visc, dt_body
+
+
+def _chunk_result(xHs, yHs, vxHs, vyHs, drPs, o, spec):
+    st = dict(xH=xHs, yH=yHs, vxH=vxHs, vyH=vyHs, drP=drPs,
+              xP=o["xP"], yP=o["yP"])
+    aux = {k: o[k] for k in _AUX}
+    aux["drP"] = o["drP"]
+    aux["cnt"] = _cnt_rows(spec, o["cnt"])
+    return st, aux
+
+
+def fused_chunk_call_plain(spec: GridSpec, lay: FusedLayout, xH, yH, vxH,
+                           vyH, drP, t_local, t_comp, interval_len, n_sub,
+                           rho0: float, p0: float, c_f: float,
+                           inv_sigma0: float, transport_coeff: float, g, mu,
+                           wall_visc_factor: float = 4.0):
+    """Plain PyTorch twin of the chunk kernel (any device; one host sync
+    per step for the loop condition)."""
+    like = xH
+    h = spec.h
+    t = _scalar(t_local, like)
+    tc = _scalar(t_comp, like)
+    interval = _scalar(interval_len, like)
+    tiny = _scalar(1e-12, like)
+    dt_visc, dt_body = chunk_dt_limits(spec, rho0, g, mu, like)
+    scal = (rho0, p0, c_f, inv_sigma0, transport_coeff,
+            _scalar(g, like), _scalar(mu, like),
+            _scalar(wall_visc_factor, like))
+    # the working state starts as copies: the inputs stay intact for the
+    # caller's rollback
+    xHs, yHs, vxHs, vyHs, drPs = (a.clone() for a in (xH, yH, vxH, vyH, drP))
+    o = None
+    steps = 0
+    while steps < int(n_sub) and bool(t < interval):
+        # the kick writes 0 to every wall and empty slot, so the max over
+        # the whole core is the fluid max
+        v_max = torch.sqrt(torch.max(vxHs * vxHs + vyHs * vyHs))
+        remain = interval - t
+        dt_ac = _scalar(0.25 * h, like) / torch.maximum(c_f + v_max, tiny)
+        dt = torch.maximum(torch.minimum(torch.minimum(dt_ac, dt_visc),
+                                         torch.minimum(dt_body, remain)),
+                           tiny)
+        o = _step_plain(spec, [xHs, yHs, vxHs, vyHs, drPs, lay.isf_c,
+                               lay.mass_c, lay.wvx_c, lay.wvy_c],
+                        lay.occ, dt, scal)
+        # Kahan-compensated interval clock (stepper._t_add)
+        yk = dt - tc
+        t2 = t + yk
+        tc = (t2 - t) - yk
+        t = t2
+        # positions stay UNWRAPPED inside a chunk
+        xHs = _refresh(xHs, o["xP"], spec.DL if spec.nx >= 3 else 0.0)
+        yHs = _refresh(yHs, o["yP"])
+        vxHs, vyHs, drPs = o["vxH"], o["vyH"], o["drP"]
+        steps += 1
+    if o is None:
+        z = torch.zeros_like(drP)
+        zh = torch.zeros_like(xH)
+        o = dict({k: (zh if k.endswith("H") else z) for k in _AUX},
+                 drP=z, xP=z, yP=z, cnt=z)
+    st, aux = _chunk_result(xHs, yHs, vxHs, vyHs, drPs, o, spec)
+    return (st, aux, torch.tensor(steps, dtype=torch.int32,
+                                  device=like.device), t, tc)
+
+
+def fused_chunk_call(spec: GridSpec, lay: FusedLayout, xH, yH, vxH, vyH,
+                     drP, t_local, t_comp, interval_len, n_sub,
+                     rho0: float, p0: float, c_f: float, inv_sigma0: float,
+                     transport_coeff: float, g, mu,
+                     wall_visc_factor: float = 4.0):
+    """Run up to ``n_sub`` steps in one call (JAX ``fused_chunk_call``).
+    Returns (state_cores_dict, aux_outs_dict, steps_done, t_new,
+    t_comp_new), the last three as 0-dim tensors on the input's device.
+    Candidate validity is NOT checked inside: the caller runs
+    ``pair_drift_bounds`` on the returned position cores. The inputs are
+    left intact. CUDA tensors launch the hand-written kernels (no host
+    sync inside the chunk), CPU tensors run the plain twin."""
+    _check_device(xH)
+    if not xH.is_cuda:
+        return fused_chunk_call_plain(
+            spec, lay, xH, yH, vxH, vyH, drP, t_local, t_comp, interval_len,
+            n_sub, rho0, p0, c_f, inv_sigma0, transport_coeff, g, mu,
+            wall_visc_factor)
+    # the clock buffer is assembled on the host and crosses in one copy
+    host = torch.empty((), dtype=xH.dtype)
+    dt_visc, dt_body = chunk_dt_limits(spec, rho0, float(g), float(mu), host)
+    work, o, steps, t, tc = fused_cell_cuda.chunk(
+        spec, plan(spec)[0], lay, xH, yH, vxH, vyH, drP, t_local, t_comp,
+        interval_len, n_sub, dt_visc, dt_body,
+        (rho0, p0, c_f, inv_sigma0, transport_coeff, g, mu,
+         wall_visc_factor))
+    st, aux = _chunk_result(*work, o, spec)
+    return st, aux, steps, t, tc
+
+
+# ---------------------------------------------------------------------------
+# wall-shear monitor
+# ---------------------------------------------------------------------------
+
+
+def _shear_plain(spec: GridSpec, lay: FusedLayout, xH, yH, vxH, volH, b11H,
+                 b12H, b21H, b22H, mu, wf):
+    """Per-slot (bottom, top) wall-shear partials (JAX _shear_kernel,
+    fused_cell.py:1928-1979)."""
+    h = spec.h
+    nyp = xH.shape[0] - 2
+    vis = _visited(spec, lay.occ, nyp)
+    zero = torch.zeros((), dtype=xH.dtype, device=xH.device)
+    r, ex, ey, _, dw, m1, mw = _geometry(
+        spec, _pair(_anc(xH)), _pair(_anc(yH)), _win(spec, xH),
+        _win(spec, yH), _win(spec, lay.isf_c), need_w=False)
+    b11a, b12a = _pair(_anc(b11H)), _pair(_anc(b12H))
+    b21a, b22a = _pair(_anc(b21H)), _pair(_anc(b22H))
+    ebe = ex * (b11a * ex + b12a * ey) + ey * (b21a * ex + b22a * ey)
+    f_pair = (wf * mu * ebe * dw * _win(spec, volH)
+              * (_pair(_anc(vxH)) - _win(spec, lay.wvx_c))
+              / (r + 0.01 * h) * _pair(_anc(volH))) * mw
+    tb = torch.sum(f_pair * _win(spec, lay.wbot_c), dim=2)
+    tt = torch.sum(f_pair * _win(spec, lay.wtop_c), dim=2)
+    return torch.where(vis, tb, zero), torch.where(vis, tt, zero)
+
+
+def fused_wall_shear_cores_plain(spec: GridSpec, lay: FusedLayout, xH, yH,
+                                 vxH, volH, b11H, b12H, b21H, b22H, mu,
+                                 wall_visc_factor: float = 4.0):
+    """Plain PyTorch twin of the wall-shear kernel (any device)."""
+    tb, tt = _shear_plain(spec, lay, xH, yH, vxH, volH, b11H, b12H, b21H,
+                          b22H, _scalar(mu, xH),
+                          _scalar(wall_visc_factor, xH))
+    return -torch.sum(tb) / spec.DL, -torch.sum(tt) / spec.DL
+
+
+def fused_wall_shear_cores(spec: GridSpec, lay: FusedLayout, xH, yH, vxH,
+                           volH, b11H, b12H, b21H, b22H, mu,
+                           wall_visc_factor: float = 4.0):
+    """Wall-shear monitor over cores in the (freshly rebuilt) layout:
+    (tau_bottom, tau_top) as 0-dim tensors, tau = -sum/DL (reference
+    ordering SPH_Poiseuille.m:280-283; formula
+    sph_physics_mex.c:1713-1742)."""
+    _check_device(xH)
+    if not xH.is_cuda:
+        return fused_wall_shear_cores_plain(
+            spec, lay, xH, yH, vxH, volH, b11H, b12H, b21H, b22H, mu,
+            wall_visc_factor)
+    tb, tt = fused_cell_cuda.wall_shear(
+        spec, plan(spec)[0], lay, xH, yH, vxH, volH, b11H, b12H, b21H,
+        b22H, mu, wall_visc_factor)
+    return -torch.sum(tb) / spec.DL, -torch.sum(tt) / spec.DL
+
+
+def fused_wall_shear(spec: GridSpec, lay: FusedLayout, x, y, vx, vol,
+                     b11, b12, b21, b22, mu, wall_visc_factor: float = 4.0):
+    """Per-particle wrapper of ``fused_wall_shear_cores``."""
+    xH = make_core(spec, lay.pidx, x, fill=_BIG_X, xshift=spec.DL)
+    yH, volH, vxH, b11H, b12H, b21H, b22H = (
+        make_core(spec, lay.pidx, v)
+        for v in (y, vol, vx, b11, b12, b21, b22))
+    return fused_wall_shear_cores(
+        spec, lay, xH, yH, vxH, volH, b11H, b12H, b21H, b22H, mu,
+        wall_visc_factor)

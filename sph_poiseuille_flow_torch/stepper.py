@@ -1,0 +1,361 @@
+"""Interval stepper of the fused cell-layout engine (torch port of the JAX
+package's ``stepper.PallasCellEngine``).
+
+Operator order is the reference's (SPH_Poiseuille.m:254-283) and the JAX
+package's: density -> KGC -> viscous(+gravity) -> shifting -> pressure ->
+kick -> continuity -> positions, with the candidate rebuild after the
+step. The JAX package runs an output interval as nested
+``lax.while_loop``s on device; here the host drives the same loops:
+
+* a sub-chunk is one ``fused_chunk_call`` (up to ``sub_steps`` steps, no
+  host sync inside on CUDA), followed by ``pair_drift_bounds``;
+* ONE host sync per sub-chunk reads (bx, by, t, t_comp, steps);
+* the predictive soft stop, the 3/4-budget floor and the rollback with
+  halving decide on the host, in float32 exactly as the JAX loop does;
+* a rollback simply drops the sub-chunk's outputs (the chunk leaves its
+  inputs intact);
+* every sub-chunk group ends in a ``build_fused_layout`` rebuild.
+
+State lives as a ``NamedTuple`` of 1-D tensors on one explicit device.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import os
+from typing import NamedTuple, Optional
+
+import numpy as np
+import torch
+
+from .config import SPHConfig
+from .models.poiseuille import Scene
+from .ops import fused_cell as pc
+from .ops import neighbors as nbr
+from .ops.integration import periodic_wrap
+
+ROADMAP_ITEM = {
+    "cellgrid": "ROADMAP.md queue 1 item 3-4 (pure-torch cell step and the "
+                "per-step CellEngine)",
+    "gather": "ROADMAP.md queue 1 item 8 (gather engine)",
+    "step_log": "ROADMAP.md queue 1 item 4 (per-step engine, which serves "
+                "the in-loop step log)",
+    "f64_cuda": "ROADMAP.md queue 2 (float64 CUDA kernels; the fused "
+                "kernels are float32, as Pallas compiles f32 only)",
+}
+
+
+class State(NamedTuple):
+    """Particle state (fluid first, walls last; reference
+    SPH_Poiseuille.m:107-123, 208-219): separate 1-D tensors."""
+
+    x: torch.Tensor
+    y: torch.Tensor
+    vx: torch.Tensor
+    vy: torch.Tensor
+    rho: torch.Tensor
+    p: torch.Tensor
+    drho_dt: torch.Tensor
+    fx: torch.Tensor        # pressure force (reference `force`)
+    fy: torch.Tensor
+    fpx: torch.Tensor       # prior force (viscous + gravity)
+    fpy: torch.Tensor
+    vol: torch.Tensor
+    b11: torch.Tensor
+    b12: torch.Tensor
+    b21: torch.Tensor
+    b22: torch.Tensor
+
+
+class IntervalResult(NamedTuple):
+    """One interval's outcome. Device values (tau, v_max, n_pairs,
+    overflow) stay 0-dim tensors; values the host loop already knows are
+    plain numbers."""
+
+    state: State
+    cands: pc.FusedLayout
+    geom: torch.Tensor          # the step's pair count (fused convention)
+    tau_bottom: torch.Tensor
+    tau_top: torch.Tensor
+    n_steps: int
+    overflow: torch.Tensor      # bool: cell-capacity overflow
+    skin_guard: bool            # single-step drift-budget crossing
+    v_max: torch.Tensor
+    n_pairs: torch.Tensor
+    n_rollbacks: int = 0
+    t_local: Optional[np.floating] = None
+    t_comp: Optional[np.floating] = None
+    sub_len: Optional[int] = None
+    n_syncs: int = 0            # host syncs the interval took
+
+
+def _t_add(t, comp, dt):
+    """Kahan-compensated interval clock ``t += dt`` (the JAX package's
+    ``stepper._t_add``; SPH_Poiseuille.m:250, :259, :267 remainder
+    semantics)."""
+    y = dt - comp
+    s = t + y
+    return s, (s - t) - y
+
+
+def initial_state(cfg: SPHConfig, scene: Scene, device) -> State:
+    dtype = getattr(torch, cfg.dtype)
+    n = scene.n_total
+
+    def arr(a):
+        return torch.as_tensor(np.asarray(a), dtype=dtype, device=device)
+
+    z = torch.zeros(n, dtype=dtype, device=device)
+    mass = arr(scene.mass)
+    rho = torch.full((n,), cfg.rho0, dtype=dtype, device=device)
+    return State(
+        x=arr(scene.x), y=arr(scene.y), vx=z, vy=z.clone(), rho=rho,
+        p=z.clone(), drho_dt=z.clone(), fx=z.clone(), fy=z.clone(),
+        fpx=z.clone(), fpy=z.clone(), vol=mass / rho,
+        b11=torch.ones(n, dtype=dtype, device=device), b12=z.clone(),
+        b21=z.clone(), b22=torch.ones(n, dtype=dtype, device=device))
+
+
+class PallasCellEngine:
+    """The fused cell-layout engine (the JAX package's flagship): every
+    physics step runs through the three fused kernels of
+    ``ops/fused_cell.py``; state is carried AS CORES inside an interval
+    and returns to particle order only at rebuilds and interval ends.
+
+    API as the JAX engine's: ``init(state) -> (state, layout, n_pairs,
+    overflow)`` and ``run_interval(state, layout, n_pairs, interval_len,
+    ...) -> IntervalResult``."""
+
+    def __init__(self, cfg: SPHConfig, scene: Scene, device):
+        self.device = torch.device(device)
+        if self.device.type == "cuda" and cfg.dtype != "float32":
+            raise NotImplementedError(
+                f"dtype {cfg.dtype} on CUDA is not ported: "
+                + ROADMAP_ITEM["f64_cuda"])
+        self.cfg = cfg
+        self.scene = scene
+        self.spec = nbr.make_grid_spec(cfg, scene, lane_pack=True)
+        dtype = getattr(torch, cfg.dtype)
+        self.dtype = dtype
+        self._mass = torch.as_tensor(scene.mass, dtype=dtype,
+                                     device=self.device)
+        self._wall_vx = torch.zeros(scene.n_total, dtype=dtype,
+                                    device=self.device)
+        self._wall_vy = torch.zeros_like(self._wall_vx)
+        self._wall_y = torch.as_tensor(scene.y, dtype=dtype,
+                                       device=self.device)
+
+    def _rebuild(self, x, y, state_fields=()):
+        return pc.build_fused_layout(
+            self.spec, x, y, self._mass, self._wall_vx, self._wall_vy,
+            self._wall_y, state_fields=state_fields)
+
+    def init(self, state: State):
+        """Initial layout + one fused step with dt=0 and no shifting
+        (SPH_Poiseuille.m:165-173): rho, p, vol and B. drho_dt is kept
+        (it carries across a restart into the first half-kick)."""
+        cfg = self.cfg
+        lay = self._rebuild(state.x, state.y)
+        out = pc.fused_cell_step(
+            self.spec, lay, state.x, state.y, state.vx, state.vy,
+            state.drho_dt, 0.0, cfg.rho0, cfg.p0, cfg.c_f, cfg.inv_sigma0,
+            0.0, cfg.gravity_g, cfg.mu, cfg.wall_visc_factor)
+        state = state._replace(
+            rho=out["rho"], p=out["p"], vol=out["vol"], b11=out["b11"],
+            b12=out["b12"], b21=out["b21"], b22=out["b22"])
+        return state, lay, out["n_pairs"], lay.overflow
+
+    def final_shear(self, state: State, lay, mu):
+        """Interval-final wall shear on the post-rebuild layout
+        (SPH_Poiseuille.m:280-283)."""
+        return pc.fused_wall_shear(
+            self.spec, lay, state.x, state.y, state.vx, state.vol,
+            state.b11, state.b12, state.b21, state.b22, mu,
+            self.cfg.wall_visc_factor)
+
+    def _scatter_all(self, lay, s: State):
+        spec = self.spec
+        mc = pc.make_core
+        mp = pc.make_plain
+        return dict(
+            xH=mc(spec, lay.pidx, s.x, fill=pc._BIG_X, xshift=spec.DL),
+            yH=mc(spec, lay.pidx, s.y), vxH=mc(spec, lay.pidx, s.vx),
+            vyH=mc(spec, lay.pidx, s.vy), drP=mp(spec, lay.pidx, s.drho_dt),
+            rhoP=mp(spec, lay.pidx, s.rho), pP=mp(spec, lay.pidx, s.p),
+            fxP=mp(spec, lay.pidx, s.fx), fyP=mp(spec, lay.pidx, s.fy),
+            fpxP=mp(spec, lay.pidx, s.fpx), fpyP=mp(spec, lay.pidx, s.fpy),
+            volH=mc(spec, lay.pidx, s.vol), b11H=mc(spec, lay.pidx, s.b11),
+            b12H=mc(spec, lay.pidx, s.b12), b21H=mc(spec, lay.pidx, s.b21),
+            b22H=mc(spec, lay.pidx, s.b22))
+
+    def _do_rebuild(self, lay, st):
+        """Collect positions/velocities/drho back to particle order, wrap x
+        (positions leave a chunk unwrapped; SPH_Poiseuille.m:570-577) and
+        rebuild the layout with the state riding the same scatter."""
+        spec = self.spec
+        pk = torch.stack([st["xP"].reshape(-1), st["yP"].reshape(-1),
+                          st["drP"].reshape(-1)], dim=-1)
+        pk = pk[torch.clamp(lay.pidx, max=pk.shape[0] - 1)]
+        hk = torch.stack([st["vxH"].reshape(-1), st["vyH"].reshape(-1)],
+                         dim=-1)
+        hk = hk[torch.clamp(lay.hidx, max=hk.shape[0] - 1)]
+        xp = periodic_wrap(spec, pk[:, 0])
+        nl, (vxP, vyP, drP) = self._rebuild(
+            xp, pk[:, 1], state_fields=(hk[:, 0], hk[:, 1], pk[:, 2]))
+        return nl, dict(
+            xH=pc.halo_ify(spec, nl.refx_p, fill=pc._BIG_X, xshift=spec.DL),
+            yH=pc.halo_ify(spec, nl.refy_p), vxH=pc.halo_ify(spec, vxP),
+            vyH=pc.halo_ify(spec, vyP), drP=drP)
+
+    def run_interval(self, state: State, lay, geom, interval_len,
+                     g=None, mu=None, max_steps=None, t_local0=None,
+                     t_comp0=None, sub_len0=None) -> IntervalResult:
+        """Run to the next output point (the JAX
+        ``PallasCellEngine._run_interval``, stepper.py:732-1056).
+        ``max_steps``/``t_local0``/``t_comp0``/``sub_len0``: trajectory-
+        preserving step-bounded dispatch; the bound binds at sub-chunk
+        GROUP boundaries, so a call may overshoot it by up to
+        rebuild_every - 1 steps."""
+        cfg, spec = self.cfg, self.spec
+        if cfg.step_log_every > 0:
+            raise NotImplementedError(
+                "step_log_every > 0 is not ported: "
+                + ROADMAP_ITEM["step_log"])
+        f = np.float32 if self.dtype == torch.float32 else np.float64
+        g = cfg.gravity_g if g is None else g
+        mu = cfg.mu if mu is None else mu
+        scalars = (cfg.rho0, cfg.p0, cfg.c_f, cfg.inv_sigma0,
+                   cfg.transport_coeff, g, mu, cfg.wall_visc_factor)
+        interval = f(interval_len)
+        rb = max(1, int(cfg.rebuild_every))
+        sub_max = min(rb, int(os.environ.get("SPH_SUB_STEPS", "")
+                              or getattr(cfg, "sub_steps", 16)))
+        predict = os.environ.get("SPH_DRIFT_PREDICTOR", "1") != "0"
+        sxb, syb = f(spec.skin_x), f(spec.skin_y)
+        R, L, n_groups, nyp = pc.plan(spec)
+
+        t_local = f(0.0) if t_local0 is None else f(t_local0)
+        t_comp = f(0.0) if t_comp0 is None else f(t_comp0)
+        sub_len = (sub_max if sub_len0 is None
+                   else min(int(sub_len0), sub_max))
+        cores = self._scatter_all(lay, state)
+        pidx_e, hidx_e = lay.pidx, lay.hidx
+        npairs = torch.as_tensor(geom, device=self.device).to(torch.int32)
+        n_steps, n_roll, n_syncs = 0, 0, 0
+        overflow = lay.overflow
+        guard = False
+
+        while t_local < interval and (max_steps is None
+                                      or n_steps < int(max_steps)):
+            st = dict(cores, xP=cores["xH"][1:-1, :, 1:-1],
+                      yP=cores["yH"][1:-1, :, 1:-1],
+                      cnt=torch.zeros((n_groups, L), dtype=self.dtype,
+                                      device=self.device))
+            t_i, tc_i = t_local, t_comp
+            done_i, soft, nrb, slen = 0, False, 0, sub_len
+            bp = (f(0.0), f(0.0))
+            while not soft and done_i < rb and t_i < interval:
+                n_sub = min(slen, rb - done_i)
+                st2, aux2, steps_t, t2_t, tc2_t = pc.fused_chunk_call(
+                    spec, lay, st["xH"], st["yH"], st["vxH"], st["vyH"],
+                    st["drP"], t_i, tc_i, interval, n_sub, *scalars)
+                if spec.skin > 0.0:
+                    bx_t, by_t = pc.pair_drift_bounds(spec, lay, st2["xP"],
+                                                      st2["yP"])
+                else:
+                    bx_t = by_t = torch.zeros((), dtype=self.dtype,
+                                              device=self.device)
+                # the one host sync of the sub-chunk
+                vals = torch.stack([bx_t, by_t, t2_t, tc2_t,
+                                    steps_t.to(self.dtype)]).tolist()
+                n_syncs += 1
+                bx, by, t2, tc2 = (f(v) for v in vals[:4])
+                steps_done = int(vals[4])
+                if spec.skin > 0.0:
+                    # a genuine crossing rolls the sub-chunk back; the
+                    # PREDICTIVE stop (1.5x the last increment) and the
+                    # 3/4-consumed floor schedule rebuilds before that
+                    trip = bx > sxb or by > syb
+                    if predict:
+                        soft2 = bool(
+                            bx + f(1.5) * (bx - bp[0]) > sxb
+                            or by + f(1.5) * (by - bp[1]) > syb
+                            or bx > f(0.75) * sxb or by > f(0.75) * syb)
+                    else:
+                        soft2 = bool(trip)
+                else:
+                    soft2, trip = True, False
+                unrecoverable = n_sub == 1 and done_i == 0
+                recov = bool(trip) and not unrecoverable
+                guard = guard or (bool(trip) and unrecoverable)
+                if recov:
+                    slen = max(n_sub // 2, 1)
+                else:
+                    st = dict(st2, **aux2)
+                    t_i, tc_i = t2, tc2
+                    done_i += steps_done
+                soft = soft2 or recov
+                bp = (bx, by)
+                nrb += int(recov)
+            # a trip-free group earns the next group a doubled sub-chunk
+            sub_len = min(2 * slen, sub_max) if nrb == 0 else slen
+
+            new_lay, rebuilt = self._do_rebuild(lay, st)
+            cores = dict(rebuilt, **{k: st[k] for k in (
+                "rhoP", "pP", "fxP", "fyP", "fpxP", "fpyP", "volH", "b11H",
+                "b12H", "b21H", "b22H")})
+            npairs = torch.round(torch.sum(st["cnt"])).to(torch.int32)
+            pidx_e, hidx_e = lay.pidx, lay.hidx
+            lay = new_lay
+            t_local, t_comp = t_i, tc_i
+            n_steps += done_i
+            overflow = torch.logical_or(overflow, new_lay.overflow)
+            n_roll += nrb
+
+        def tk(core, idx):
+            flat = core.reshape(-1)
+            return flat[torch.clamp(idx, max=flat.numel() - 1)]
+
+        # xH/yH/vxH/vyH/drP are in the CURRENT layout (the trailing rebuild
+        # re-scattered them); the aux cores are in the exec layout
+        state = State(
+            x=periodic_wrap(spec, tk(cores["xH"], lay.hidx)),
+            y=tk(cores["yH"], lay.hidx), vx=tk(cores["vxH"], lay.hidx),
+            vy=tk(cores["vyH"], lay.hidx),
+            rho=tk(cores["rhoP"], pidx_e), p=tk(cores["pP"], pidx_e),
+            drho_dt=tk(cores["drP"], lay.pidx),
+            fx=tk(cores["fxP"], pidx_e), fy=tk(cores["fyP"], pidx_e),
+            fpx=tk(cores["fpxP"], pidx_e), fpy=tk(cores["fpyP"], pidx_e),
+            vol=tk(cores["volH"], hidx_e), b11=tk(cores["b11H"], hidx_e),
+            b12=tk(cores["b12H"], hidx_e), b21=tk(cores["b21H"], hidx_e),
+            b22=tk(cores["b22H"], hidx_e))
+        tau_b, tau_t = self.final_shear(state, lay, mu)
+        nf = spec.n_fluid
+        v_max = torch.sqrt(torch.max(state.vx[:nf] ** 2
+                                     + state.vy[:nf] ** 2))
+        return IntervalResult(
+            state=state, cands=lay, geom=npairs, tau_bottom=tau_b,
+            tau_top=tau_t, n_steps=n_steps, overflow=overflow,
+            skin_guard=guard, v_max=v_max, n_pairs=npairs,
+            n_rollbacks=n_roll, t_local=t_local, t_comp=t_comp,
+            sub_len=sub_len, n_syncs=n_syncs)
+
+
+def resolve_engine_name(cfg: SPHConfig, scene: Scene = None) -> str:
+    """"auto" and "pallas" name the fused cell-layout engine, the one
+    engine this port has, on every device; the others raise."""
+    if cfg.engine in ("auto", "pallas"):
+        return "pallas"
+    if cfg.engine in ("cellgrid", "gather"):
+        raise NotImplementedError(
+            f"engine {cfg.engine!r} is not ported: "
+            + ROADMAP_ITEM[cfg.engine])
+    raise ValueError(f"unknown engine {cfg.engine!r}")
+
+
+def make_engine(cfg: SPHConfig, scene: Scene, device):
+    """Engine factory honoring cfg.engine on an explicit device."""
+    name = resolve_engine_name(cfg, scene)
+    if name != cfg.engine:
+        cfg = dataclasses.replace(cfg, engine=name)
+    return PallasCellEngine(cfg, scene, device)

@@ -1,0 +1,197 @@
+"""The port's command line end to end on a tiny ini with ``--device cpu``,
+its five ``SPH_*_OVERRIDE`` environment variables, ``--profile``, the flags
+that are not ported yet, and the rule that the package never imports
+jax."""
+
+import importlib.util
+import json
+import os
+import subprocess
+import sys
+
+import numpy as np
+import pytest
+import torch
+
+from sph_poiseuille_flow_torch import run as cli
+
+torch.set_num_threads(1)
+
+ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+TINY_INI = ("[physical]\nDL = 1.0\nDH = 0.5\ndp = 0.05\nrho0 = 1.0\n"
+            "mu = 0.4\nU_bulk = 0.666667\nc_f = 15.0\n"
+            "[simulation]\nend_time = 0.1\noutput_interval = 0.05\n"
+            "sort_interval = 100\nrestart_from_file = 0\n")
+
+
+@pytest.fixture(scope="module")
+def cli_run(tmp_path_factory):
+    """One CLI run whose config and every output path come from the five
+    override variables (no --config flag)."""
+    d = tmp_path_factory.mktemp("cli")
+    (d / "tiny.ini").write_text(TINY_INI)
+    env = dict(SPH_CONFIG_OVERRIDE=str(d / "tiny.ini"),
+               SPH_RESTART_PATH_OVERRIDE=str(d / "o" / "restart.npz"),
+               SPH_RESULT_PNG_OVERRIDE=str(d / "o" / "r.png"),
+               SPH_PROFILE_PNG_OVERRIDE=str(d / "o" / "p.png"),
+               SPH_POSTPROCESS_MAT_OVERRIDE=str(d / "o" / "post.npz"))
+    mp = pytest.MonkeyPatch()
+    for k, v in env.items():
+        mp.setenv(k, v)
+    try:
+        import contextlib
+        import io
+        buf = io.StringIO()
+        with contextlib.redirect_stdout(buf):
+            rc = cli.main(["--device", "cpu", "--base-dir", str(d / "base"),
+                           "--set", "physical.mu=0.4"])
+    finally:
+        mp.undo()
+    return rc, buf.getvalue(), d
+
+
+def test_cli_end_to_end_on_cpu(cli_run):
+    rc, out, d = cli_run
+    assert "L2 relative error" in out, out
+    assert "throughput" in out and "host syncs" in out
+    # a 0.1 s run is undeveloped: the verdict is FAILED, exit code 1
+    assert "validation FAILED" in out and rc == 1
+    assert out.count("output point:") == 2
+
+
+@pytest.mark.parametrize("var,name", [
+    ("SPH_RESTART_PATH_OVERRIDE", "restart.npz"),
+    ("SPH_POSTPROCESS_MAT_OVERRIDE", "post.npz"),
+    ("SPH_RESULT_PNG_OVERRIDE", "r.png"),
+    ("SPH_PROFILE_PNG_OVERRIDE", "p.png"),
+])
+def test_output_overrides(cli_run, var, name):
+    _, out, d = cli_run
+    if name.endswith(".png") and importlib.util.find_spec(
+            "matplotlib") is None:
+        assert "figures skipped" in out
+        return
+    assert (d / "o" / name).exists(), var
+    assert not (d / "base" / name).exists()
+
+
+def test_config_override_was_read(cli_run):
+    """SPH_CONFIG_OVERRIDE named the tiny ini: 200 fluid particles."""
+    _, out, _ = cli_run
+    assert "particles: fluid=200, wall=160, total=360" in out
+
+
+def test_restart_file_loads_in_the_jax_package(cli_run):
+    from sph_poiseuille_flow_tpu.config import derive_config
+    from sph_poiseuille_flow_tpu.utils.checkpoint import load_restart
+    _, _, d = cli_run
+    cfg = derive_config(DL=1.0, DH=0.5, dp=0.05, rho0=1.0, mu=0.4,
+                        U_bulk=0.666667, c_f=15.0, end_time=0.1,
+                        output_interval=0.05, sort_interval=100,
+                        restart_from_file=False)
+    payload, reason = load_restart(str(d / "o" / "restart.npz"),
+                                   cfg.signature, 360)
+    assert reason == "ok"
+    assert payload["t"] == pytest.approx(0.1)
+    assert np.all(np.isfinite(payload["vx"]))
+
+
+def test_restart_resumes_in_the_port(cli_run, monkeypatch, capsys):
+    """restart_from_file=1 with the same signature: the run resumes from
+    the file the first run wrote (through interop.state_from_numpy) at
+    t=end_time, so no interval runs and the verdict is recomputed."""
+    _, _, d = cli_run
+    ini = d / "resume.ini"
+    ini.write_text(TINY_INI.replace("restart_from_file = 0",
+                                    "restart_from_file = 1"))
+    monkeypatch.setenv("SPH_RESTART_PATH_OVERRIDE",
+                       str(d / "o" / "restart.npz"))
+    rc = cli.main(["--config", str(ini), "--device", "cpu", "--base-dir",
+                   str(d / "resume"), "--set", "physical.mu=0.4"])
+    out = capsys.readouterr().out
+    assert "Restart: resuming from t=0.100000" in out
+    assert "output point:" not in out and "L2 relative error" in out
+    assert rc == 1
+
+
+def test_postprocess_only(cli_run, capsys):
+    _, _, d = cli_run
+    rc = cli.main(["--postprocess-only", str(d / "o" / "post.npz")])
+    assert "L2 relative error" in capsys.readouterr().out
+    assert rc == 1
+
+
+@pytest.mark.parametrize("flag", [["--mesh", "2"], ["--sweep-mus", "0.1"],
+                                  ["--sweep-lane-chunk", "4"]])
+def test_unported_flags_raise(flag):
+    with pytest.raises(NotImplementedError, match="not yet ported"):
+        cli.main(["--device", "cpu"] + flag)
+
+
+def test_profile_writes_trace_and_summary(tmp_path, capsys):
+    """--profile DIR captures the run with torch.profiler: a chrome trace
+    and a per-interval summary. On the CPU there is no device activity, so
+    the busy share is reported as not measured rather than as 0."""
+    ini = tmp_path / "tiny.ini"
+    ini.write_text(TINY_INI.replace("end_time = 0.1", "end_time = 0.004")
+                   .replace("output_interval = 0.05",
+                            "output_interval = 0.002"))
+    cli.main(["--config", str(ini), "--device", "cpu", "--base-dir",
+              str(tmp_path), "--profile", str(tmp_path / "prof")])
+    out = capsys.readouterr().out
+    assert (tmp_path / "prof" / "trace.json").stat().st_size > 0
+    summary = json.loads((tmp_path / "prof" / "summary.json").read_text())
+    assert len(summary["intervals"]) == out.count("output point:") == 2
+    assert all(r["wall_us"] > 0 and r["busy_us"] is None
+               for r in summary["intervals"])
+    assert summary["steady"]["n_intervals"] == 1
+    assert "device busy not measured" in out
+
+
+def test_profile_union_of_device_spans():
+    """The busy time is the union of overlapping device spans inside each
+    interval, clipped to it; user ranges on the device timeline are not
+    device work."""
+    from types import SimpleNamespace as NS
+
+    from torch.autograd import DeviceType
+
+    from sph_poiseuille_flow_torch.utils import profile as prof
+
+    def ev(name, a, b, dev):
+        return NS(name=name, time_range=NS(start=a, end=b), device_type=dev,
+                  is_user_annotation=False)
+
+    cpu, cuda = DeviceType.CPU, DeviceType.CUDA
+    events = [ev(prof.INTERVAL, 0, 100, cpu), ev(prof.INTERVAL, 200, 300, cpu),
+              ev(prof.INTERVAL, 0, 300, cuda),
+              ev("k1", -10, 30, cuda), ev("k2", 20, 50, cuda),
+              ev("k1", 210, 260, cuda), ev("k2", 290, 320, cuda)]
+    s = prof.summarize(events)
+    assert [r["busy_us"] for r in s["intervals"]] == [50, 60]
+    assert s["intervals"][0]["device_us_by_name"] == {"k1": 30, "k2": 30}
+    assert s["steady"]["busy_share"] == pytest.approx(0.6)
+    assert s["steady"]["device_us_by_name"] == {"k1": 50, "k2": 10}
+
+
+def test_device_cuda_without_a_card_raises(tmp_path):
+    """--device cuda never carries on on the CPU."""
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA card is present; this checks its absence")
+    ini = tmp_path / "tiny.ini"
+    ini.write_text(TINY_INI)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        cli.main(["--config", str(ini), "--base-dir", str(tmp_path)])
+
+
+def test_import_leaves_no_jax():
+    r = subprocess.run(
+        [sys.executable, "-c",
+         "import sys, sph_poiseuille_flow_torch, "
+         "sph_poiseuille_flow_torch.run, sph_poiseuille_flow_torch.interop;"
+         "print(sorted(m for m in sys.modules "
+         "if m.split('.')[0] in ('jax', 'jaxlib', "
+         "'sph_poiseuille_flow_tpu')))"],
+        capture_output=True, text=True, timeout=120, cwd=ROOT)
+    assert r.returncode == 0, r.stderr
+    assert r.stdout.strip() == "[]"
