@@ -9,32 +9,45 @@ Phases, each of which exits non-zero on failure before the last line:
 1. build the hand-written CUDA kernels from ``csrc/`` with nvcc (sm_90a),
    printing the compiler's register/spill report and the card;
 2. hold each kernel against its plain PyTorch version on the card, on a
-   seeded, jittered state at each grid the main path runs:
-   (a) ``config.ini`` with the CLI defaults (dp=0.05, K=16, no skin): the
-   fused step at dt=0 with no shift and at a real dt, a one-step chunk as
-   the interval loop calls it there, a chunk that reaches the interval end
-   mid-chunk, the wall shear; (b) the validated dp=0.01 channel with the
-   shipping knobs (skin 0.3dp, rebuild_every 128, K=14, nx=100): the fused
-   step at both dts, a 16-step chunk, the wall shear;
+   seeded, jittered state at each grid the main path runs, in each form
+   the layout knobs select (recompute "none", the geometry cache that
+   "auto" picks there, "partial" with a forced k_cut that splits K, and
+   "rows"): (a) ``config.ini`` with the CLI defaults (dp=0.05, K=16, no
+   skin): the fused step at dt=0 with no shift and at a real dt, a
+   one-step chunk as the interval loop calls it there, a chunk that
+   reaches the interval end mid-chunk, the wall shear; (b) the validated
+   dp=0.01 channel with the shipping knobs (skin 0.3dp, rebuild_every 128,
+   K=14, nx=100): the fused step at both dts, a 16-step chunk, the wall
+   shear. The rows kernels are also held to the recompute kernels, which
+   they should equal bit for bit;
 3. drive the main path through the CLI (``run.main``): (a) ``config.ini``
-   as shipped (20 s), which must pass its 5% L2 gate; (b) the dp=0.01
-   channel with the shipping knobs for a few tenths of a second, which must
-   stay clean (the simulation raises on overflow, on an unrecoverable
-   drift-guard trip and on non-finite velocities) with v_max and tau
-   rising. The launch count of each kernel is reset to 0 before each run
-   and must be nonzero after it;
-4. time each kernel against its plain version with CUDA events at the
-   (b) shapes.
+   as shipped (20 s, "auto", so the geometry cache), which must pass its
+   5% L2 gate; (b) the dp=0.01 channel with the shipping knobs for a few
+   tenths of a second under "auto" (the cache), ``--geom-cache none`` and
+   ``--fused-rows 1``, each of which must stay clean (the simulation
+   raises on overflow, on an unrecoverable drift-guard trip and on
+   non-finite velocities) with v_max and tau rising; (c) a short
+   ``config.ini`` run with ``--step-log-every``, whose log rows are
+   printed. The launch counts are reset to 0 before each run and each
+   kernel of the form the run selects must be nonzero after it;
+4. time each kernel and form against its plain version with CUDA events
+   at the (b) shapes and at dp=0.025.
 
-Prints the card's name and power limit, a ``{"kernels": [...]}`` line and,
-last, ``{"ok": true, "device": {...}}``. Imports nothing of JAX. Outputs
-go to ``results/chip_smoke/`` (git-ignored).
+Prints the card's name and power limit, a ``{"kernels": [...]}`` line
+(each kernel with its time, its plain version's and the least time the
+card could take for the same work) and, last, ``{"ok": true, "device":
+{...}}``. Imports nothing of JAX. Outputs go to ``results/chip_smoke/``
+(git-ignored).
 """
 
 from __future__ import annotations
 
+import contextlib
+import dataclasses
+import io
 import json
 import os
+import re
 import subprocess
 import sys
 import time
@@ -49,6 +62,14 @@ DP001 = dict(DL=3.0, DH=1.0, dp=0.01, rho0=1.0, mu=0.1, U_bulk=0.666667,
              c_f=15.0, end_time=0.3, output_interval=0.1, sort_interval=100,
              restart_from_file=False, neighbor_skin=0.3 * 0.01,
              rebuild_every=128, cell_capacity=14, lane_pack_nx=100)
+# the dp=0.025 shipping grid (4,800 fluid particles, nx=40), for timing
+DP0025 = dict(DP001, dp=0.025, neighbor_skin=0.3 * 0.025, lane_pack_nx=40)
+
+# The forms of the step and the chunk, as (label, spec knobs): "cache" is
+# what "auto" picks at the grid ("full" at (a) and dp=0.025, "ring" at
+# (b), one kernel here); "partial" caches half the anchor ranks.
+FORMS = (("none", dict(geom_cache="none")), ("cache", {}),
+         ("partial", None), ("rows", dict(fused_rows="1")))
 
 # Kernel vs plain tolerances, as a bound on max|kernel - plain| relative to
 # max(1, max|plain|) of each core. Both run the same float32 operations in
@@ -94,7 +115,7 @@ class Check:
         self.max_abs = {}
 
     def core(self, kernel: str, name: str, got, ref, tol: float,
-             absolute: float = None) -> None:
+             absolute: float = None, record: bool = True) -> None:
         import torch
         if got.shape != ref.shape:
             raise AssertionError(f"{kernel}/{name}: shape {tuple(got.shape)}"
@@ -114,9 +135,10 @@ class Check:
         scale = max(1.0, float(ref.abs().max()))
         bound = tol * scale if absolute is None else absolute
         rel = err / scale
-        _say(f"  {kernel:17s} {name:8s} max_abs={err:.3e} rel={rel:.3e} "
+        _say(f"  {kernel:17s} {name:18s} max_abs={err:.3e} rel={rel:.3e} "
              f"bound={bound:.1e}")
-        self.max_abs[kernel] = max(self.max_abs.get(kernel, 0.0), err)
+        if record:
+            self.max_abs[kernel] = max(self.max_abs.get(kernel, 0.0), err)
         if not err <= bound:
             raise AssertionError(f"{kernel}/{name}: kernel vs plain error "
                                  f"{err:.3e} above {bound:.1e}")
@@ -172,6 +194,14 @@ def _jittered_case(cfg, device):
     return scene, spec, lay, cores, (vx, vy)
 
 
+def _form_spec(spec, knobs):
+    """``spec`` with a form's layout knobs; ``None`` is "partial" with half
+    the anchor ranks cached (a split that is not a multiple of a warp)."""
+    if knobs is None:
+        knobs = dict(geom_cache="partial", geom_kcut=spec.K // 2)
+    return dataclasses.replace(spec, **knobs)
+
+
 # The chunk cases of each grid, as (n_sub, interval, expected steps): the
 # interval loop of (a) calls one-step chunks (rebuild_every 1); the clamp
 # case ends its interval mid-chunk (dt is about 1e-3 at dp=0.05), so the
@@ -188,6 +218,72 @@ def phase_build() -> None:
          f"{time.perf_counter() - t0:.1f} s")
 
 
+def _check_form(device, check: Check, label: str, cfg, spec, lay, args,
+                dt, flabel: str) -> dict:
+    """The step at both dts and the grid's chunk cases in one form, each
+    against its plain twin in the same form. Returns the kernel outputs."""
+    import torch
+    from sph_poiseuille_flow_torch.ops import fused_cell as fc
+    from sph_poiseuille_flow_torch.ops import fused_cell_cuda as fcc
+
+    sform = fc.step_form(spec, torch.float32)
+    cform = fc.chunk_form(spec, torch.float32)
+    kstep = fcc.launch_key("fused_step", sform[0])
+    kchunk = fcc.launch_key("fused_chunk", cform[0])
+    _say(f"  form {flabel} ({label}): step {sform} -> {kstep}, chunk "
+         f"{cform} -> {kchunk}")
+    if flabel == "partial" and not 0 < cform[1] < spec.K:
+        raise AssertionError(f"partial k_cut {cform[1]} does not split "
+                             f"K={spec.K}")
+    outs = {}
+    for dtv, tc in ((0.0, 0.0), (dt, cfg.transport_coeff)):
+        sc = (cfg.rho0, cfg.p0, cfg.c_f, cfg.inv_sigma0, tc, cfg.gravity_g,
+              cfg.mu, cfg.wall_visc_factor)
+        got = fc.fused_step_cores(spec, lay, *args, dtv, *sc)
+        ref = fc.fused_step_cores_plain(spec, lay, *args, dtv, *sc)
+        torch.cuda.synchronize()
+        tag = f"{label}/{flabel}:" + ("" if tc else "@0:")
+        for k in sorted(ref):
+            check.core(kstep, tag + k, got[k], ref[k], TOL_STEP,
+                       _abs_bound(k, TOL_STEP, cfg.p0, 0.0))
+        outs[f"step{'' if tc else '@0'}"] = got
+
+    sc = (cfg.rho0, cfg.p0, cfg.c_f, cfg.inv_sigma0, cfg.transport_coeff,
+          cfg.gravity_g, cfg.mu, cfg.wall_visc_factor)
+    for n_sub, interval, want in CHUNKS[label]:
+        got = fc.fused_chunk_call(spec, lay, *args, 0.0, 0.0, interval,
+                                  n_sub, *sc)
+        ref = fc.fused_chunk_call_plain(spec, lay, *args, 0.0, 0.0, interval,
+                                        n_sub, *sc)
+        torch.cuda.synchronize()
+        gs, rs = int(got[2]), int(ref[2])
+        if gs != rs or (want is not None and gs != want):
+            raise AssertionError(f"{kchunk} ({label}, n_sub={n_sub}): "
+                                 f"steps {gs} / plain {rs}, expected "
+                                 f"{want if want is not None else rs}")
+        if want is None:
+            # the interval ends inside the chunk: the clamp lands on it
+            if not 1 < gs < n_sub or float(got[3]) != float(ref[3]):
+                raise AssertionError(
+                    f"{kchunk} ({label}): {gs} steps, t={float(got[3])!r}"
+                    f" / plain {float(ref[3])!r} at interval {interval}")
+        tol = TOL_STEP if n_sub == 1 else TOL_CHUNK
+        cnt = 0.0 if n_sub == 1 else CNT_CHUNK
+        tag = f"{label}/{flabel}{n_sub}:"
+        for part in (0, 1):
+            for k in sorted(ref[part]):
+                check.core(kchunk, tag + k, got[part][k], ref[part][k], tol,
+                           _abs_bound(k, tol, cfg.p0, cnt))
+        for i, k in ((3, "t"), (4, "t_comp")):
+            check.core(kchunk, tag + k, got[i].reshape(1),
+                       ref[i].reshape(1), tol * 1e-3)
+        _say(f"  {kchunk} ({label}) n_sub={n_sub} interval={interval} "
+             f"steps={gs} t={float(got[3]):.9e} plain t={float(ref[3]):.9e}")
+        outs[f"chunk{n_sub}"] = {**got[0], **{f"aux:{k}": v
+                                              for k, v in got[1].items()}}
+    return outs
+
+
 def phase_kernels(device, check: Check, label: str, cfg) -> dict:
     import torch
     from sph_poiseuille_flow_torch.ops import fused_cell as fc
@@ -202,50 +298,32 @@ def phase_kernels(device, check: Check, label: str, cfg) -> dict:
     dt = verlet_dt(vx[:nf], vy[:nf], cfg.c_f, cfg.h, cfg.nu, cfg.gravity_g,
                    1.0)
     args = (c["xH"], c["yH"], c["vxH"], c["vyH"], c["drP"])
-    for dtv, tc in ((0.0, 0.0), (dt, cfg.transport_coeff)):
-        sc = (cfg.rho0, cfg.p0, cfg.c_f, cfg.inv_sigma0, tc, cfg.gravity_g,
-              cfg.mu, cfg.wall_visc_factor)
-        got = fc.fused_step_cores(spec, lay, *args, dtv, *sc)
-        ref = fc.fused_step_cores_plain(spec, lay, *args, dtv, *sc)
-        torch.cuda.synchronize()
-        for k in sorted(ref):
-            check.core("fused_step", f"{label}:{k}" + ("" if tc else "@0"),
-                       got[k], ref[k], TOL_STEP,
-                       _abs_bound(k, TOL_STEP, cfg.p0, 0.0))
+    outs = {flabel: _check_form(device, check, label, cfg,
+                                _form_spec(spec, knobs), lay, args, dt,
+                                flabel)
+            for flabel, knobs in FORMS}
 
-    sc = (cfg.rho0, cfg.p0, cfg.c_f, cfg.inv_sigma0, cfg.transport_coeff,
-          cfg.gravity_g, cfg.mu, cfg.wall_visc_factor)
-    for n_sub, interval, want in CHUNKS[label]:
-        got = fc.fused_chunk_call(spec, lay, *args, 0.0, 0.0, interval,
-                                  n_sub, *sc)
-        ref = fc.fused_chunk_call_plain(spec, lay, *args, 0.0, 0.0, interval,
-                                        n_sub, *sc)
-        torch.cuda.synchronize()
-        gs, rs = int(got[2]), int(ref[2])
-        if gs != rs or (want is not None and gs != want):
-            raise AssertionError(f"fused_chunk ({label}, n_sub={n_sub}): "
-                                 f"steps {gs} / plain {rs}, expected "
-                                 f"{want if want is not None else rs}")
-        if want is None:
-            # the interval ends inside the chunk: the clamp lands on it
-            if not 1 < gs < n_sub or float(got[3]) != float(ref[3]):
-                raise AssertionError(
-                    f"fused_chunk ({label}): {gs} steps, t={float(got[3])!r}"
-                    f" / plain {float(ref[3])!r} at interval {interval}")
-        tol = TOL_STEP if n_sub == 1 else TOL_CHUNK
-        cnt = 0.0 if n_sub == 1 else CNT_CHUNK
-        tag = f"{label}{n_sub}"
-        for part in (0, 1):
-            for k in sorted(ref[part]):
-                check.core("fused_chunk", f"{tag}:{k}", got[part][k],
-                           ref[part][k], tol, _abs_bound(k, tol, cfg.p0, cnt))
-        for i, k in ((3, "t"), (4, "t_comp")):
-            check.core("fused_chunk", f"{tag}:{k}", got[i].reshape(1),
-                       ref[i].reshape(1), tol * 1e-3)
-        _say(f"  fused_chunk ({label}) n_sub={n_sub} interval={interval} "
-             f"steps={gs} t={float(got[3]):.9e} plain t={float(ref[3]):.9e}")
+    # the rows kernels run the recompute arithmetic in the recompute order
+    # from shared memory: they should equal the recompute kernels
+    n_eq = n_all = 0
+    for case, got in outs["rows"].items():
+        step = case.startswith("step")
+        tol = TOL_STEP if step else TOL_CHUNK
+        for k, v in got.items():
+            n_all += 1
+            n_eq += int(torch.equal(v, outs["none"][case][k]))
+            check.core("fused_step_rows" if step else "fused_chunk_rows",
+                       f"{label}/rows-none:{case}:{k}", v,
+                       outs["none"][case][k], tol,
+                       _abs_bound(k.split(":")[-1], tol, cfg.p0,
+                                  0.0 if step else CNT_CHUNK),
+                       record=False)
+    _say(f"  rows vs recompute kernels ({label}): {n_eq} of {n_all} cores "
+         "bit-equal")
 
     # the wall shear on the stepped cores, as the engine calls it
+    sc = (cfg.rho0, cfg.p0, cfg.c_f, cfg.inv_sigma0, cfg.transport_coeff,
+          cfg.gravity_g, cfg.mu, cfg.wall_visc_factor)
     o = fc.fused_step_cores_plain(spec, lay, *args, dt, *sc)
     sh = (c["xH"], c["yH"], o["vxH"], o["volH"], o["b11H"], o["b12H"],
           o["b21H"], o["b22H"], cfg.mu, cfg.wall_visc_factor)
@@ -259,8 +337,9 @@ def phase_kernels(device, check: Check, label: str, cfg) -> dict:
     return dict(cfg=cfg, spec=spec, lay=lay, args=args, sc=sc, dt=dt, sh=sh)
 
 
-def _run_cli(name: str, ini_text, extra) -> dict:
-    """One in-process CLI run; returns the result dict of the run."""
+def _run_cli(name: str, ini_text, extra, capture: bool = False) -> dict:
+    """One in-process CLI run; returns the result dict of the run (with
+    its standard output under "stdout" when ``capture``)."""
     import torch
     from sph_poiseuille_flow_torch import run as cli
     from sph_poiseuille_flow_torch import simulation
@@ -285,10 +364,13 @@ def _run_cli(name: str, ini_text, extra) -> dict:
         return captured["result"]
 
     simulation.Simulation.run = run_and_keep
+    buf = io.StringIO()
     try:
         t0 = time.perf_counter()
-        rc = cli.main(["--config", ini, "--base-dir", base,
-                       "--device", "cuda"] + list(extra))
+        with (contextlib.redirect_stdout(buf) if capture
+              else contextlib.nullcontext()):
+            rc = cli.main(["--config", ini, "--base-dir", base,
+                           "--device", "cuda"] + list(extra))
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
     finally:
@@ -296,7 +378,26 @@ def _run_cli(name: str, ini_text, extra) -> dict:
     res = captured["result"]
     res["rc"] = rc
     res["wall_total"] = wall
+    res["stdout"] = buf.getvalue()
     return res
+
+
+# the dp=0.01 runs of phase 3: (name, CLI flags, LAUNCHES suffix of the
+# form the run selects)
+RUNS_B = (("b", [], "_cache"), ("b_none", ["--geom-cache", "none"], ""),
+          ("b_rows", ["--fused-rows", "1"], "_rows"))
+
+
+def _launched(run: str, counts: dict, want: set) -> None:
+    """Each kernel in ``want`` ran in the run, and no other form of the
+    step or the chunk did: no form gives way to another."""
+    for k, v in counts.items():
+        if k in want and v <= 0:
+            raise AssertionError(f"main ({run}): kernel {k} was never "
+                                 "launched")
+        if k not in want and v != 0:
+            raise AssertionError(f"main ({run}): kernel {k} launched {v} "
+                                 "times, outside the run's form")
 
 
 def phase_main() -> dict:
@@ -309,8 +410,8 @@ def phase_main() -> dict:
     ra = _run_cli("a_config_ini", None, [])
     counts["a"] = dict(fcc.LAUNCHES)
     _say(f"main (a) config.ini: rc={ra['rc']} L2={100 * ra['L2_error']:.4f}% "
-         f"steps={ra['step']} t={ra['t']:.3f} "
-         f"tau_bottom={ra['tau_bottom']:.5f} "
+         f"(recompute form: 1.7366%, PERF.md) steps={ra['step']} "
+         f"t={ra['t']:.3f} tau_bottom={ra['tau_bottom']:.5f} "
          f"psteps/s={ra['particle_steps_per_sec']:.4e} "
          f"host_syncs={ra['host_syncs']} launches={counts['a']}")
     if ra["rc"] != 0 or not ra["passed"]:
@@ -318,47 +419,79 @@ def phase_main() -> dict:
                              "did not pass the 5% gate")
     if not math.isfinite(ra["tau_bottom"]):
         raise AssertionError("(a) config.ini: non-finite tau")
+    _launched("a", counts["a"], {"fused_step_cache", "fused_chunk_cache",
+                                 "fused_wall_shear"})
 
-    # (b) the dp=0.01 channel with the shipping knobs, a few tenths of s
+    # (b) the dp=0.01 channel with the shipping knobs, a few tenths of s,
+    # in each form a user can select
     ini = ("[physical]\nDL = 3.0\nDH = 1.0\ndp = 0.01\nrho0 = 1.0\n"
            "mu = 0.1\nU_bulk = 0.666667\nc_f = 15.0\n"
            f"[simulation]\nend_time = {DP001['end_time']}\n"
            f"output_interval = {DP001['output_interval']}\n"
            "sort_interval = 100\nrestart_from_file = 0\n")
-    fcc.reset_launch_counts()
-    rb = _run_cli("b_dp001", ini,
-                  ["--neighbor-skin", str(DP001["neighbor_skin"]),
-                   "--rebuild-every", "128", "--cell-capacity", "14",
-                   "--lane-pack-nx", "100"])
-    counts["b"] = dict(fcc.LAUNCHES)
-    taus = [tb for _, tb, _ in rb["tau_history"]]
-    vmaxs = rb["v_max_history"]
-    st = rb["final_state"]
-    import torch
-    finite = all(bool(torch.isfinite(getattr(st, f)).all())
-                 for f in st._fields)
-    _say(f"main (b) dp=0.01: steps={rb['step']} t={rb['t']:.3f} "
-         f"tau_bottom={['%.5f' % v for v in taus]} "
-         f"v_max={['%.4f' % v for v in vmaxs]} "
-         f"psteps/s={rb['particle_steps_per_sec']:.4e} "
-         f"host_syncs={rb['host_syncs']} launches={counts['b']}")
     from sph_poiseuille_flow_torch.config import derive_config
     tau_target = derive_config(**DP001).tau_target
-    if not finite or not all(math.isfinite(v) for v in taus):
-        raise AssertionError("(b) dp=0.01: non-finite state or tau")
-    if not all(b > a for a, b in zip(taus, taus[1:])) or taus[0] <= 0:
-        raise AssertionError(f"(b) dp=0.01: tau not rising: {taus}")
-    if not all(b > a for a, b in zip(vmaxs, vmaxs[1:])) or vmaxs[0] <= 0:
-        raise AssertionError(f"(b) dp=0.01: v_max not rising: {vmaxs}")
-    if not taus[-1] < 1.2 * tau_target:
-        raise AssertionError(f"(b) dp=0.01: tau {taus[-1]} overshoots "
-                             f"tau_target {tau_target}")
-    for run, c in counts.items():
-        for k, v in c.items():
-            if v <= 0:
-                raise AssertionError(f"main ({run}): kernel {k} was never "
-                                     "launched")
-    return dict(a=ra, b=rb, counts=counts)
+    runs = {"a": ra}
+    for name, flags, suffix in RUNS_B:
+        fcc.reset_launch_counts()
+        rb = _run_cli(f"{name}_dp001", ini,
+                      ["--neighbor-skin", str(DP001["neighbor_skin"]),
+                       "--rebuild-every", "128", "--cell-capacity", "14",
+                       "--lane-pack-nx", "100"] + flags)
+        counts[name] = dict(fcc.LAUNCHES)
+        runs[name] = rb
+        taus = [tb for _, tb, _ in rb["tau_history"]]
+        vmaxs = rb["v_max_history"]
+        st = rb["final_state"]
+        import torch
+        finite = all(bool(torch.isfinite(getattr(st, f)).all())
+                     for f in st._fields)
+        _say(f"main ({name}) dp=0.01 {' '.join(flags) or 'auto'}: "
+             f"steps={rb['step']} t={rb['t']:.3f} "
+             f"tau_bottom={['%.5f' % v for v in taus]} "
+             f"v_max={['%.4f' % v for v in vmaxs]} "
+             f"psteps/s={rb['particle_steps_per_sec']:.4e} "
+             f"host_syncs={rb['host_syncs']} launches={counts[name]}")
+        if not finite or not all(math.isfinite(v) for v in taus):
+            raise AssertionError(f"({name}) dp=0.01: non-finite state or tau")
+        if not all(b > a for a, b in zip(taus, taus[1:])) or taus[0] <= 0:
+            raise AssertionError(f"({name}) dp=0.01: tau not rising: {taus}")
+        if not all(b > a for a, b in zip(vmaxs, vmaxs[1:])) or vmaxs[0] <= 0:
+            raise AssertionError(f"({name}) dp=0.01: v_max not rising: "
+                                 f"{vmaxs}")
+        if not taus[-1] < 1.2 * tau_target:
+            raise AssertionError(f"({name}) dp=0.01: tau {taus[-1]} "
+                                 f"overshoots tau_target {tau_target}")
+        _launched(name, counts[name], {"fused_step" + suffix,
+                                       "fused_chunk" + suffix,
+                                       "fused_wall_shear"})
+
+    # (c) the per-step log path: config.ini for 0.05 s, a row every 10
+    fcc.reset_launch_counts()
+    rc = _run_cli("c_step_log", None,
+                  ["--step-log-every", "10", "--set",
+                   "simulation.end_time=0.05", "--set",
+                   "simulation.output_interval=0.025"], capture=True)
+    counts["c"] = dict(fcc.LAUNCHES)
+    runs["c"] = rc
+    pat = re.compile(r"step=(\d+), t=\d+\.\d{6}/\d+\.\d{6}, "
+                     r"dt=\d\.\d{4}e[+-]\d+, pairs=\d+, vmax=\d+\.\d{4}$")
+    lines = rc["stdout"].splitlines()
+    rows = [ln for ln in lines if pat.match(ln)]
+    for i, ln in enumerate(lines):
+        if pat.match(ln):
+            _say(f"  {ln}")
+            _say(f"  {lines[i + 1]}")
+    steps = [int(pat.match(ln).group(1)) for ln in rows]
+    _say(f"main (c) step log: {len(rows)} rows over {rc['step']} steps, "
+         f"host_syncs={rc['host_syncs']} launches={counts['c']}")
+    if (len(rows) < 2 or any(s % 10 for s in steps)
+            or steps != sorted(set(steps))
+            or not all(lines[i + 1].startswith("  [thick-wall-noslip]")
+                       for i, ln in enumerate(lines) if pat.match(ln))):
+        raise AssertionError(f"(c) step log rows malformed: {rows}")
+    _launched("c", counts["c"], {"fused_step_cache", "fused_wall_shear"})
+    return dict(runs=runs, counts=counts)
 
 
 def _time(fn, reps: int) -> float:
@@ -375,43 +508,158 @@ def _time(fn, reps: int) -> float:
     return e0.elapsed_time(e1) / reps
 
 
-def phase_timing(k: dict) -> dict:
+# Least time for the work: the larger of
+# the bytes the function must move (each input read once, each output
+# written once) over 3.35 TB/s and its float32 operations over 67 TFLOP/s
+# (one H100 SXM at 700 W). Operations counted from csrc/fused_cell.cu, for
+# the pairs these inputs hold: the window test of every visited candidate
+# (dx, dy, r^2 and two compares: 7); per valid pair the geometry (rsqrt, r,
+# q, w, dw, masks, unit vector: 20), sweep 0 (8), sweep 1 (13), sweep 2's
+# two passes with the projections done once (62 + 41) and sweep 3 (15):
+# 159; per visited anchor the density, the KGC inversion, the limiter, the
+# kick and the update (120). The shear: the test per candidate and, per
+# valid wall pair, the geometry and its term (20 + 21).
+PEAK_OPS, PEAK_BYTES = 67e12, 3.35e12
+TEST_OPS, STEP_PAIR_OPS, STEP_ANCHOR_OPS, SHEAR_PAIR_OPS = 7, 159, 120, 41
+
+
+def _pair_counts(spec, lay, xH, yH) -> dict:
+    """Visited anchors, their candidates, valid pairs and valid wall pairs
+    of these position cores."""
+    import torch
     from sph_poiseuille_flow_torch.ops import fused_cell as fc
-    spec, lay, args, sc, dt, sh = (k[n] for n in ("spec", "lay", "args",
-                                                  "sc", "dt", "sh"))
+    nyp = xH.shape[0] - 2
+    vis = fc._visited(spec, lay.occ, nyp).unsqueeze(-1).to(xH.dtype)
+    _, _, _, _, _, m1, mw = fc._geometry(
+        spec, fc._pair(fc._anc(xH)), fc._pair(fc._anc(yH)),
+        fc._win(spec, xH), fc._win(spec, yH), fc._win(spec, lay.isf_c),
+        need_w=False)
+    anchors = float(vis.sum()) * spec.nx
+    return dict(anchors=anchors, cands=anchors * 9 * spec.K,
+                pairs=float(torch.sum((m1 + mw) * vis)),
+                wall=float(torch.sum(mw * vis)))
+
+
+def _bound(kind: str, spec, n: dict, n_steps: int = 1):
+    """(bound_ms, bound_by) of one call of a step, a chunk of ``n_steps``
+    steps or the shear on a grid with pair counts ``n``."""
+    from sph_poiseuille_flow_torch.ops import fused_cell as fc
+    nyp = fc.plan(spec)[3]
+    halo = (nyp + 2) * spec.K * (spec.nx + 2) * 4
+    plain = nyp * spec.K * spec.nx * 4
+    if kind == "shear":
+        nbytes = 12 * halo + 2 * plain
+        ops = n["cands"] * TEST_OPS + n["wall"] * SHEAR_PAIR_OPS
+    else:
+        step_ops = (n["cands"] * TEST_OPS + n["pairs"] * STEP_PAIR_OPS
+                    + n["anchors"] * STEP_ANCHOR_OPS)
+        if kind == "step":   # 8 halo'd + dr in; 7 halo'd + 9 plain + cnt out
+            nbytes = 8 * halo + plain + 7 * halo + 10 * plain
+        else:                # 9 halo'd + dr in; state 5 + 17 aux cores out
+            nbytes = 8 * halo + plain + 4 * halo + plain + 7 * halo \
+                + 10 * plain
+        ops = step_ops * n_steps
+    t_ops, t_bytes = ops / PEAK_OPS, nbytes / PEAK_BYTES
+    return (1e3 * max(t_ops, t_bytes),
+            "operations" if t_ops >= t_bytes else "bytes")
+
+
+def phase_timing(device, kern_b: dict) -> dict:
+    """Kernel and plain times of every form of step and chunk at the (b)
+    shapes and at dp=0.025, and of the shear at (b); with each call's
+    bound. Returns {(grid, kernel): (ms, plain_ms, bound_ms, bound_by)}."""
+    import torch
+    from sph_poiseuille_flow_torch.config import derive_config
+    from sph_poiseuille_flow_torch.ops import fused_cell as fc
+    from sph_poiseuille_flow_torch.ops import fused_cell_cuda as fcc
+    from sph_poiseuille_flow_torch.ops.integration import verlet_dt
+
+    cfg25 = derive_config(**DP0025)
+    _, spec25, lay25, c25, (vx, vy) = _jittered_case(cfg25, device)
+    nf = int(spec25.n_fluid)
+    grids = {"b": kern_b, "d025": dict(
+        spec=spec25, lay=lay25,
+        args=(c25["xH"], c25["yH"], c25["vxH"], c25["vyH"], c25["drP"]),
+        sc=kern_b["sc"], dt=verlet_dt(vx[:nf], vy[:nf], cfg25.c_f, cfg25.h,
+                                      cfg25.nu, cfg25.gravity_g, 1.0))}
     out = {}
-    # plain first, then kernel, kernel, plain (one card, in turns)
-    pairs = {
-        "fused_step": (
-            lambda: fc.fused_step_cores(spec, lay, *args, dt, *sc),
-            lambda: fc.fused_step_cores_plain(spec, lay, *args, dt, *sc), 20),
-        "fused_chunk": (
-            lambda: fc.fused_chunk_call(spec, lay, *args, 0.0, 0.0, 1.0, 16,
-                                        *sc),
-            lambda: fc.fused_chunk_call_plain(spec, lay, *args, 0.0, 0.0,
-                                              1.0, 16, *sc), 5),
-        "fused_wall_shear": (
-            lambda: fc.fused_wall_shear_cores(spec, lay, *sh),
-            lambda: fc.fused_wall_shear_cores_plain(spec, lay, *sh), 20),
-    }
-    for name, (kern, plain, reps) in pairs.items():
-        p1 = _time(plain, reps)
-        k1 = _time(kern, reps)
-        k2 = _time(kern, reps)
-        p2 = _time(plain, reps)
-        out[name] = (min(k1, k2), min(p1, p2))
-        _say(f"timing {name:17s} kernel {k1:.4f}/{k2:.4f} ms, plain "
-             f"{p1:.4f}/{p2:.4f} ms per call")
+    for grid, k in grids.items():
+        spec, lay, args, sc, dt = (k[n] for n in ("spec", "lay", "args",
+                                                  "sc", "dt"))
+        n = _pair_counts(spec, lay, args[0], args[1])
+        _say(f"timing ({grid}): {n['anchors']:.0f} visited anchors, "
+             f"{n['pairs']:.0f} valid pairs, {n['wall']:.0f} wall pairs")
+        for flabel, knobs in FORMS:
+            fspec = _form_spec(spec, knobs)
+            form = fc.chunk_form(fspec, torch.float32)[0]
+            pairs = {
+                "fused_step": (
+                    lambda: fc.fused_step_cores(fspec, lay, *args, dt, *sc),
+                    lambda: fc.fused_step_cores_plain(fspec, lay, *args, dt,
+                                                      *sc), 20, ("step", 1)),
+                "fused_chunk": (
+                    lambda: fc.fused_chunk_call(fspec, lay, *args, 0.0, 0.0,
+                                                1.0, 16, *sc),
+                    lambda: fc.fused_chunk_call_plain(
+                        fspec, lay, *args, 0.0, 0.0, 1.0, 16, *sc), 5,
+                    ("chunk", 16)),
+            }
+            # device memory of one step call above its inputs (the cache
+            # form allocates 9K entries of 24 bytes per cached slot)
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats(device)
+            held = torch.cuda.memory_allocated(device)
+            pairs["fused_step"][0]()
+            torch.cuda.synchronize()
+            peak = torch.cuda.max_memory_allocated(device) - held
+            _say(f"memory ({grid}) [{flabel:7s}] one step: peak "
+                 f"{peak / 2**20:.1f} MiB above its inputs; the cache list "
+                 f"holds {n['pairs'] * 24 / 2**20:.1f} MiB of valid pairs")
+            for base, (kern, plain, reps, (kind, steps)) in pairs.items():
+                # plain first, then kernel, kernel, plain (in turns)
+                p1 = _time(plain, reps)
+                k1 = _time(kern, reps)
+                k2 = _time(kern, reps)
+                p2 = _time(plain, reps)
+                bound = _bound(kind, spec, n, steps)
+                name = fcc.launch_key(base, form)
+                _say(f"timing ({grid}) {name:17s} [{flabel:7s}] kernel "
+                     f"{k1:.4f}/{k2:.4f} ms, plain {p1:.4f}/{p2:.4f} ms, "
+                     f"bound {bound[0]:.4f} ms ({bound[1]})")
+                key = (grid, name if flabel != "partial"
+                       else name + "[partial]")
+                out[key] = (min(k1, k2), min(p1, p2)) + bound
+    k = kern_b
+    sh = k["sh"]
+    p1 = _time(lambda: fc.fused_wall_shear_cores_plain(k["spec"], k["lay"],
+                                                       *sh), 20)
+    k1 = _time(lambda: fc.fused_wall_shear_cores(k["spec"], k["lay"], *sh),
+               20)
+    k2 = _time(lambda: fc.fused_wall_shear_cores(k["spec"], k["lay"], *sh),
+               20)
+    p2 = _time(lambda: fc.fused_wall_shear_cores_plain(k["spec"], k["lay"],
+                                                       *sh), 20)
+    n = _pair_counts(k["spec"], k["lay"], sh[0], sh[1])
+    bound = _bound("shear", k["spec"], n)
+    _say(f"timing (b) fused_wall_shear  kernel {k1:.4f}/{k2:.4f} ms, plain "
+         f"{p1:.4f}/{p2:.4f} ms, bound {bound[0]:.4f} ms ({bound[1]})")
+    out[("b", "fused_wall_shear")] = (min(k1, k2), min(p1, p2)) + bound
     return out
 
 
 # the TPU kernel each CUDA kernel replaces: _step_kernel/_kernel_body via
-# _fused_call, _chunk_kernel via fused_chunk_call, _shear_kernel via
+# _fused_call, _chunk_kernel via fused_chunk_call, the geometry cache of
+# both (cache_plan), _kernel_body_rows, _shear_kernel via
 # fused_wall_shear_cores
+_TPU = "sph_poiseuille_flow_tpu/ops/fused_cell.py"
 REPLACES = {
-    "fused_step": "sph_poiseuille_flow_tpu/ops/fused_cell.py:560",
-    "fused_chunk": "sph_poiseuille_flow_tpu/ops/fused_cell.py:1550",
-    "fused_wall_shear": "sph_poiseuille_flow_tpu/ops/fused_cell.py:1928",
+    "fused_step": f"{_TPU}:560",
+    "fused_step_cache": f"{_TPU}:422",
+    "fused_step_rows": f"{_TPU}:1081",
+    "fused_chunk": f"{_TPU}:1550",
+    "fused_chunk_cache": f"{_TPU}:422",
+    "fused_chunk_rows": f"{_TPU}:1081",
+    "fused_wall_shear": f"{_TPU}:1928",
 }
 
 
@@ -446,7 +694,7 @@ def main() -> int:
         kern = {label: phase_kernels(device, check, label, cfg)
                 for label, cfg in _grids()}
         main_res = phase_main()
-        timing = phase_timing(kern["b"])
+        timing = phase_timing(device, kern["b"])
         _say(f"all phases done in {time.perf_counter() - t0:.1f} s")
     except Exception:
         traceback.print_exc()
@@ -458,17 +706,19 @@ def main() -> int:
 
     kernels = []
     for name, where in REPLACES.items():
-        ms, plain_ms = timing[name]
+        ms, plain_ms, bound_ms, bound_by = timing[("b", name)]
         kernels.append({
             "name": name, "route": "cuda",
             "source": "sph_poiseuille_flow_torch/csrc/fused_cell.cu",
             "replaces": where,
             "launches": sum(c[name] for c in main_res["counts"].values()),
             "max_abs_err": check.max_abs[name], "ms": ms,
-            "plain_ms": plain_ms})
+            "plain_ms": plain_ms, "bound_ms": bound_ms,
+            "bound_by": bound_by, "library_ms": None})
     print(json.dumps({"kernels": kernels}))
-    for run in ("a", "b"):
-        r = main_res[run]
+    print(json.dumps({"timing": {f"{g}:{n}": v
+                                 for (g, n), v in timing.items()}}))
+    for run, r in main_res["runs"].items():
         print(json.dumps({"run": run, "L2_error": r["L2_error"],
                           "steps": r["step"], "t": r["t"],
                           "tau_bottom": r["tau_bottom"],

@@ -2,8 +2,9 @@
 
 The second package beside ``sph_poiseuille_flow_tpu`` (the JAX/Pallas
 reference, which it never imports). Module names mirror the JAX
-package's. The fused cell-layout engine runs its three kernels -- the
-fused step, the multi-step chunk and the wall-shear monitor -- as
+package's. The fused cell-layout engine runs its kernels -- the fused
+step and the multi-step chunk, each in the recompute, geometry-cache and
+row-outer forms the layout knobs select, and the wall-shear monitor -- as
 hand-written CUDA C++ for Hopper (``csrc/fused_cell.cu``) on CUDA tensors,
 and as their plain PyTorch twins on CPU tensors.
 """

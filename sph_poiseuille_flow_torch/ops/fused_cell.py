@@ -20,6 +20,13 @@ tensors. The twins build the ``(nyp, 9K, nx)`` window stacks by slicing
 the halo'd cores and do the sweep algebra as tensor ops, in the JAX
 package's operation order; they are what the kernels are held to.
 
+The step and the chunk come in the forms the JAX package's layout knobs
+select (``step_form``/``chunk_form``, resolved exactly as the JAX package
+resolves them): the recompute sweeps ("none"), the geometry cache
+("full", "ring", "partial" -- ranks below ``k_cut`` cached) and the
+candidate-row-outer loop ("rows"). The plain twins differ between them
+only where the JAX cached expressions associate differently (sweep 1).
+
 The rebuild glue (slot assignment, packed scatter, takes) and the drift
 guard are plain torch, as they are XLA in the JAX package.
 """
@@ -62,6 +69,128 @@ def plan(spec: GridSpec):
     R = best[1]
     n_groups = -(-ny // R)
     return R, R * nx, n_groups, R * n_groups
+
+
+# ---------------------------------------------------------------------------
+# layout-knob resolution (the JAX package's fused_cell.py:364-557, :1482-1501)
+# ---------------------------------------------------------------------------
+#
+# The budgets are the TPU's VMEM figures. They are kept so that for every
+# spec, knob and environment variable the port resolves the same form and
+# k_cut as the JAX package, which makes the cores comparable one for one.
+# Re-picking "auto" for the H100 waits for measurements on the card.
+
+_N_CACHE = 5        # cached per pair: ex ey r dw*m1 dw*mw
+_GEOM_CACHE_BUDGET = 48 * 1024 * 1024
+_RING_CACHE_BUDGET = 80 * 1024 * 1024
+_PARTIAL_CACHE_BUDGET = 64 * 1024 * 1024
+_RING_DEPTH = 4
+
+
+def _itemsize(dtype) -> int:
+    if isinstance(dtype, str):
+        dtype = getattr(torch, dtype)
+    return torch.empty((), dtype=dtype).element_size()
+
+
+def _cache_bytes(spec: GridSpec, dtype, n_slots: int,
+                 k_cut: int | None = None) -> int:
+    R, L, n_groups, nyp = plan(spec)
+    K = spec.K if k_cut is None else k_cut
+    sub = -(-9 * spec.K // 8) * 8
+    lanes = -(-L // 128) * 128
+    return _N_CACHE * n_slots * K * sub * lanes * _itemsize(dtype)
+
+
+def use_geom_cache(spec: GridSpec, dtype) -> bool:
+    """True when the JAX package's full per-(group, k) cache fits its
+    VMEM budget."""
+    n_groups = plan(spec)[2]
+    return _cache_bytes(spec, dtype, n_groups) <= _GEOM_CACHE_BUDGET
+
+
+def _k_unroll() -> int:
+    """The JAX package's anchor-rank unroll (SPH_FUSED_UNROLL). The unroll
+    is TPU scheduling; the port reads it only to align ``k_cut`` as the
+    JAX package does."""
+    return max(1, int(os.environ.get("SPH_FUSED_UNROLL", "1")))
+
+
+def cache_plan(spec: GridSpec, dtype) -> tuple:
+    """("full"|"ring"|"partial"|"none", k_cut): the geometry-cache form and
+    the number of cached anchor ranks (K except for "partial"), from
+    ``spec.geom_cache``/``spec.geom_kcut`` with the environment variables
+    SPH_GEOM_CACHE and SPH_GEOM_KCUT overriding them."""
+    K = spec.K
+    env = (os.environ.get("SPH_GEOM_CACHE", "")
+           or getattr(spec, "geom_cache", "auto"))
+
+    def partial_kcut():
+        kc = (int(os.environ.get("SPH_GEOM_KCUT", "0"))
+              or int(getattr(spec, "geom_kcut", 0)))
+        if kc <= 0:
+            kc = K - 1
+            while kc >= 2 and _cache_bytes(
+                    spec, dtype, _RING_DEPTH, kc) > _PARTIAL_CACHE_BUDGET:
+                kc -= 1
+        u = _k_unroll()
+        return min(kc - kc % u, K)
+
+    if env in ("0", "none"):
+        return "none", 0
+    if env in ("full", "ring"):
+        return env, K
+    if env == "partial":
+        return "partial", partial_kcut()
+    if use_geom_cache(spec, dtype):
+        return "full", K
+    if _cache_bytes(spec, dtype, _RING_DEPTH) <= _RING_CACHE_BUDGET:
+        return "ring", K
+    kc = partial_kcut()
+    if kc >= 2:
+        return "partial", kc
+    return "none", 0
+
+
+def cache_mode(spec: GridSpec, dtype) -> str:
+    return cache_plan(spec, dtype)[0]
+
+
+def use_rows(spec: GridSpec, dtype) -> bool:
+    """The candidate-row-outer loop (``spec.fused_rows``, environment
+    variable SPH_FUSED_ROWS); off unless asked for, as in the JAX
+    package."""
+    v = (os.environ.get("SPH_FUSED_ROWS", "")
+         or getattr(spec, "fused_rows", "auto"))
+    return v == "1"
+
+
+def chunk_form(spec: GridSpec, dtype) -> tuple:
+    """(form, k_cut) of the chunk (JAX fused_chunk_call, :1724-1725):
+    "rows" forces the recompute loop, so it takes no cache."""
+    if use_rows(spec, dtype):
+        return "rows", 0
+    return cache_plan(spec, dtype)
+
+
+def step_form(spec: GridSpec, dtype) -> tuple:
+    """(form, k_cut) of the single step (JAX _fused_call, :1482-1501): a
+    forced ring or partial cache whose size busts the JAX package's own
+    budget drops to the full cache when that fits, else to recompute."""
+    cm, kc = chunk_form(spec, dtype)
+    if (cm in ("ring", "partial")
+            and _cache_bytes(spec, dtype, _RING_DEPTH,
+                             kc if cm == "partial" else None)
+            > (_RING_CACHE_BUDGET if cm == "ring"
+               else _PARTIAL_CACHE_BUDGET)):
+        cm, kc = (("full", spec.K) if use_geom_cache(spec, dtype)
+                  else ("none", 0))
+    return cm, kc
+
+
+def _cached_ranks(form: str, k_cut: int) -> int:
+    """Anchor ranks k < this read the geometry cache (0: none)."""
+    return k_cut if form in ("full", "ring", "partial") else 0
 
 
 class FusedLayout(NamedTuple):
@@ -316,11 +445,13 @@ def _geometry(spec: GridSpec, xa, ya, xv, yv, isfv, need_w=True):
     return r, dx * rs, dy * rs, w, dw, m1, mw
 
 
-def _step_plain(spec: GridSpec, cores, occ, dt, scalars):
+def _step_plain(spec: GridSpec, cores, occ, dt, scalars, n_cached: int = 0):
     """One fused step on cores (the four sweeps of the JAX _kernel_body,
     fused_cell.py:604-1078). ``cores``: x y vx vy (halo'd), dr (plain),
     isf mass wvx wvy (halo'd). ``dt``/``g``/``mu``/``wf``: 0-dim tensors.
-    Returns a dict of output cores with ``cnt`` per slot (nyp, K, nx)."""
+    Anchor ranks k < ``n_cached`` take the geometry-cache expressions
+    (:743-762). Returns a dict of output cores with ``cnt`` per slot
+    (nyp, K, nx)."""
     (rho0, p0, c_f, inv_sigma0, transport_coeff, g, mu, wf) = scalars
     (xC, yC, vxC, vyC, drP, isfC, massC, wvxC, wvyC) = cores
     h = spec.h
@@ -361,6 +492,15 @@ def _step_plain(spec: GridSpec, cores, occ, dt, scalars):
     # ---- sweep 1: kernel gradient correction (c:239-365) ----
     volv = _win(spec, volO)
     rf = r * dw * volv * (m1 + mw)
+    if n_cached > 0:
+        # the cache holds dw*m1 and dw*mw and folds Vol_j into them; sweeps
+        # 2-3 read those products, which equal (dw*Vol_j)*m1 and
+        # (dw*Vol_j)*mw bit for bit (m1, mw are exactly 0 or 1), so only
+        # rf associates differently
+        rf_c = r * ((dw * m1) * volv + (dw * mw) * volv)
+        cached = (torch.arange(spec.K, device=rf.device)
+                  < n_cached).reshape(1, spec.K, 1, 1)
+        rf = torch.where(cached, rf_c, rf)
     a11 = -torch.sum(rf * ex * ex, dim=2)
     a12 = -torch.sum(rf * ex * ey, dim=2)
     a22 = -torch.sum(rf * ey * ey, dim=2)
@@ -493,12 +633,14 @@ def fused_step_cores_plain(spec: GridSpec, lay: FusedLayout, xH, yH, vxH,
                            vyH, drP, dt, rho0: float, p0: float, c_f: float,
                            inv_sigma0: float, transport_coeff: float, g, mu,
                            wall_visc_factor: float = 4.0):
-    """Plain PyTorch twin of the fused step kernel (any device)."""
+    """Plain PyTorch twin of the fused step kernel (any device), in the
+    form ``step_form`` resolves."""
     cores = [xH, yH, vxH, vyH, drP,
              lay.isf_c, lay.mass_c, lay.wvx_c, lay.wvy_c]
     scal = (rho0, p0, c_f, inv_sigma0, transport_coeff,
             _scalar(g, xH), _scalar(mu, xH), _scalar(wall_visc_factor, xH))
-    o = _step_plain(spec, cores, lay.occ, _scalar(dt, xH), scal)
+    o = _step_plain(spec, cores, lay.occ, _scalar(dt, xH), scal,
+                    _cached_ranks(*step_form(spec, xH.dtype)))
     o["cnt"] = _cnt_rows(spec, o["cnt"])
     return o
 
@@ -510,8 +652,8 @@ def fused_step_cores(spec: GridSpec, lay: FusedLayout, xH, yH, vxH, vyH,
     """Core-level fused step (JAX ``fused_step_cores``): halo'd
     position/velocity cores + plain drho_dt core in; a dict of output
     cores (suffix H = halo'd, P = plain) + ``cnt`` (n_groups, L) out.
-    CUDA tensors launch the hand-written kernel, CPU tensors run the
-    plain twin."""
+    CUDA tensors launch the hand-written kernel of the form ``step_form``
+    resolves, CPU tensors run the plain twin."""
     _check_device(xH)
     if not xH.is_cuda:
         return fused_step_cores_plain(
@@ -520,7 +662,7 @@ def fused_step_cores(spec: GridSpec, lay: FusedLayout, xH, yH, vxH, vyH,
     o = fused_cell_cuda.step(
         spec, plan(spec)[0], lay, xH, yH, vxH, vyH, drP, dt,
         (rho0, p0, c_f, inv_sigma0, transport_coeff, g, mu,
-         wall_visc_factor))
+         wall_visc_factor), *step_form(spec, xH.dtype))
     o["cnt"] = _cnt_rows(spec, o["cnt"])
     return o
 
@@ -599,8 +741,10 @@ def fused_chunk_call_plain(spec: GridSpec, lay: FusedLayout, xH, yH, vxH,
                            inv_sigma0: float, transport_coeff: float, g, mu,
                            wall_visc_factor: float = 4.0):
     """Plain PyTorch twin of the chunk kernel (any device; one host sync
-    per step for the loop condition)."""
+    per step for the loop condition), in the form ``chunk_form``
+    resolves."""
     like = xH
+    n_cached = _cached_ranks(*chunk_form(spec, xH.dtype))
     h = spec.h
     t = _scalar(t_local, like)
     tc = _scalar(t_comp, like)
@@ -626,7 +770,7 @@ def fused_chunk_call_plain(spec: GridSpec, lay: FusedLayout, xH, yH, vxH,
                            tiny)
         o = _step_plain(spec, [xHs, yHs, vxHs, vyHs, drPs, lay.isf_c,
                                lay.mass_c, lay.wvx_c, lay.wvy_c],
-                        lay.occ, dt, scal)
+                        lay.occ, dt, scal, n_cached)
         # Kahan-compensated interval clock (stepper._t_add)
         yk = dt - tc
         t2 = t + yk
@@ -658,7 +802,8 @@ def fused_chunk_call(spec: GridSpec, lay: FusedLayout, xH, yH, vxH, vyH,
     Candidate validity is NOT checked inside: the caller runs
     ``pair_drift_bounds`` on the returned position cores. The inputs are
     left intact. CUDA tensors launch the hand-written kernels (no host
-    sync inside the chunk), CPU tensors run the plain twin."""
+    sync inside the chunk) in the form ``chunk_form`` resolves, CPU
+    tensors run the plain twin."""
     _check_device(xH)
     if not xH.is_cuda:
         return fused_chunk_call_plain(
@@ -672,7 +817,7 @@ def fused_chunk_call(spec: GridSpec, lay: FusedLayout, xH, yH, vxH, vyH,
         spec, plan(spec)[0], lay, xH, yH, vxH, vyH, drP, t_local, t_comp,
         interval_len, n_sub, dt_visc, dt_body,
         (rho0, p0, c_f, inv_sigma0, transport_coeff, g, mu,
-         wall_visc_factor))
+         wall_visc_factor), *chunk_form(spec, xH.dtype))
     st, aux = _chunk_result(*work, o, spec)
     return st, aux, steps, t, tc
 

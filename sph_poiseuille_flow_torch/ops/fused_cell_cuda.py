@@ -1,6 +1,7 @@
 """Build, binding and launch wrappers of the hand-written CUDA kernels in
-``csrc/fused_cell.cu`` (the Hopper port of the JAX package's three Pallas
-kernels: the fused step, the multi-step chunk and the wall-shear monitor).
+``csrc/fused_cell.cu`` (the Hopper port of the JAX package's Pallas
+kernels: the fused step and the multi-step chunk, each in its recompute,
+geometry-cache and row-outer forms, and the wall-shear monitor).
 
 The source is compiled with ``nvcc`` for ``sm_90a`` into a shared library
 with a plain C interface at first use (into ``build/`` beside the package,
@@ -9,7 +10,9 @@ runs when the module is imported, so CPU-only installs import it freely.
 
 Each wrapper checks device, dtype (float32), shape and contiguity, launches
 on PyTorch's current stream without synchronising, raises when the C entry
-point reports a CUDA error, and adds one to its entry of ``LAUNCHES``.
+point reports a CUDA error, and adds one to its entry of ``LAUNCHES`` (one
+entry per kernel and form). A form it does not know raises; no form gives
+way to another.
 """
 
 from __future__ import annotations
@@ -31,8 +34,17 @@ BUILD_DIR = os.path.join(_PKG, "build")
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "--fmad=false", "-shared", "-Xcompiler", "-fPIC"]
 
-# launch counts of the three kernel entry points (one per wrapper call)
-LAUNCHES = {"fused_step": 0, "fused_chunk": 0, "fused_wall_shear": 0}
+# launch counts of the kernel entry points, per form (one per wrapper
+# call): "fused_step"/"fused_chunk" are the recompute form ("none"),
+# "*_cache" the geometry cache ("full", "ring", "partial"), "*_rows" the
+# candidate-row-outer loop ("rows")
+LAUNCHES = {"fused_step": 0, "fused_step_cache": 0, "fused_step_rows": 0,
+            "fused_chunk": 0, "fused_chunk_cache": 0, "fused_chunk_rows": 0,
+            "fused_wall_shear": 0}
+
+# form name -> (kernel form of csrc/fused_cell.cu, LAUNCHES suffix)
+_FORMS = {"none": (0, ""), "full": (1, "_cache"), "ring": (1, "_cache"),
+          "partial": (1, "_cache"), "rows": (2, "_rows")}
 
 _lib = None
 
@@ -43,7 +55,8 @@ def reset_launch_counts() -> None:
 
 
 class _Const(ctypes.Structure):
-    _fields_ = ([(n, ctypes.c_int) for n in ("nyp", "K", "nx", "R")]
+    _fields_ = ([(n, ctypes.c_int) for n in ("nyp", "K", "nx", "R", "kcut",
+                                              "ncs", "tx")]
                 + [(n, ctypes.c_float) for n in (
                     "DL", "h", "cut2", "sigma", "sig025", "c225soh",
                     "c3soh", "cm075soh", "rho0", "p0", "c_f", "inv_sigma0",
@@ -62,6 +75,13 @@ class _StepBufs(ctypes.Structure):
 
 _SHEAR_PTRS = ("x", "y", "isf", "vol", "vx", "b11", "b12", "b21", "b22",
                "wvx", "wbot", "wtop", "occ", "tb", "tt")
+
+
+_CACHE_PTRS = ("idx", "ex", "ey", "r", "c1", "cw", "n")
+
+
+class _CacheBufs(ctypes.Structure):
+    _fields_ = [(n, ctypes.c_void_p) for n in _CACHE_PTRS]
 
 
 class _ShearBufs(ctypes.Structure):
@@ -109,8 +129,8 @@ def _load():
     if _lib is None:
         lib = ctypes.CDLL(build())
         vp, ip = ctypes.c_void_p, ctypes.c_int
-        lib.sph_step.argtypes = [vp, vp, vp]
-        lib.sph_chunk.argtypes = [vp, vp, vp, vp, ip, vp]
+        lib.sph_step.argtypes = [vp, vp, vp, ip, vp]
+        lib.sph_chunk.argtypes = [vp, vp, vp, ip, vp, vp, ip, vp]
         lib.sph_shear.argtypes = [vp, vp, vp]
         for fn in (lib.sph_step, lib.sph_chunk, lib.sph_shear):
             fn.restype = ip
@@ -118,14 +138,18 @@ def _load():
     return _lib
 
 
-def _const(spec, R: int, rho0, p0, c_f, inv_sigma0, transport_coeff):
+def _const(spec, R: int, rho0, p0, c_f, inv_sigma0, transport_coeff,
+           kcut: int = 0):
     """Kernel constants, each rounded once from float64 as the JAX
-    package's weakly-typed Python scalars are."""
+    package's weakly-typed Python scalars are. ``kcut``: cached anchor
+    ranks of the geometry-cache form."""
     h = spec.h
     sigma = sigma_2d(h)
     soh = sigma / h
+    nyp = _shapes(spec, R)[2]
     return _Const(
-        nyp=_shapes(spec, R)[2], K=spec.K, nx=spec.nx, R=R, DL=spec.DL, h=h,
+        nyp=nyp, K=spec.K, nx=spec.nx, R=R, kcut=kcut,
+        ncs=nyp * kcut * spec.nx, tx=max(1, 128 // spec.K), DL=spec.DL, h=h,
         cut2=spec.cutoff * spec.cutoff, sigma=sigma, sig025=sigma * 0.25,
         c225soh=2.25 * soh, c3soh=3.0 * soh, cm075soh=-0.75 * soh,
         rho0=rho0, p0=p0, c_f=c_f, inv_sigma0=inv_sigma0,
@@ -208,31 +232,75 @@ def _dyn(dt, g, mu, wf, dev):
                         device=dev)
 
 
-def step(spec, R: int, lay, xH, yH, vxH, vyH, drP, dt, scalars):
-    """One fused step (the JAX _step_kernel): four sweep launches.
-    Returns the output cores with ``cnt`` per slot (nyp, K, nx)."""
+def launch_key(kernel: str, form: str) -> str:
+    """The ``LAUNCHES`` entry of ``kernel`` ("fused_step"/"fused_chunk")
+    in a resolved form."""
+    if form not in _FORMS:
+        raise ValueError(f"unknown fused-kernel form {form!r}")
+    return kernel + _FORMS[form][1]
+
+
+def _form(form: str, k_cut: int, K: int):
+    """(kernel form of csrc/fused_cell.cu, cached ranks) of a resolved
+    form."""
+    launch_key("fused_step", form)   # raises on an unknown form
+    kform = _FORMS[form][0]
+    kcut = int(k_cut) if kform == 1 else 0
+    if kform == 1 and not 1 <= kcut <= K:
+        raise ValueError(f"geometry-cache form {form!r} needs 1 <= k_cut "
+                         f"<= K={K}, got {k_cut}")
+    return kform, kcut
+
+
+def _cache_bufs(spec, R: int, kcut: int, dev):
+    """The geometry cache: 9K entries for each of the nyp*kcut*nx cached
+    anchor slots, structure of arrays with the slot fastest. Returns the
+    pointer struct and the tensors that back it (kept alive by the
+    caller until the launches are enqueued)."""
+    if kcut == 0:
+        return _CacheBufs(), ()
+    ncs = _shapes(spec, R)[2] * kcut * spec.nx
+    n_e = 9 * spec.K * ncs
+    keep = (torch.empty(n_e, dtype=torch.int32, device=dev),
+            *(torch.empty(n_e, dtype=torch.float32, device=dev)
+              for _ in range(5)),
+            torch.empty(ncs, dtype=torch.int32, device=dev))
+    return _CacheBufs(*(t.data_ptr() for t in keep)), keep
+
+
+def step(spec, R: int, lay, xH, yH, vxH, vyH, drP, dt, scalars,
+         form: str = "none", k_cut: int = 0):
+    """One fused step (the JAX _step_kernel) in ``form``: four sweep
+    launches. Returns the output cores with ``cnt`` per slot
+    (nyp, K, nx)."""
     (rho0, p0, c_f, inv_sigma0, transport_coeff, g, mu, wf) = scalars
+    kform, kcut = _form(form, k_cut, spec.K)
     lib = _load()
     dev = xH.device
     dyn = _dyn(dt, g, mu, wf, dev)
     bufs, out = _step_bufs(spec, R, lay, xH, yH, vxH, vyH, drP, dyn)
-    c = _const(spec, R, rho0, p0, c_f, inv_sigma0, transport_coeff)
+    cache, keep = _cache_bufs(spec, R, kcut, dev)
+    c = _const(spec, R, rho0, p0, c_f, inv_sigma0, transport_coeff, kcut)
     with torch.cuda.device(dev):
         _raise_on(lib.sph_step(ctypes.addressof(c), ctypes.addressof(bufs),
-                               _stream(dev)), "sph_step")
-    LAUNCHES["fused_step"] += 1
+                               ctypes.addressof(cache), kform, _stream(dev)),
+                  "sph_step")
+    del keep  # a later allocation on this stream runs after the launches
+    LAUNCHES[launch_key("fused_step", form)] += 1
     return _outputs(out)
 
 
 def chunk(spec, R: int, lay, xH, yH, vxH, vyH, drP, t_local, t_comp,
-          interval_len, n_sub, dt_visc, dt_body, scalars):
-    """Up to ``n_sub`` steps (the JAX _chunk_kernel) with no host sync:
-    per step a control launch (v_max, dt, active flag, Kahan clock on
-    device), four sweeps and a halo refresh. The inputs are copied into
-    the working state first, so they stay intact. Returns ((xH, yH, vxH,
-    vyH, drP) working state, output cores, steps, t, t_comp), the last
-    three as 0-dim device tensors."""
+          interval_len, n_sub, dt_visc, dt_body, scalars, form: str = "none",
+          k_cut: int = 0):
+    """Up to ``n_sub`` steps (the JAX _chunk_kernel) in ``form`` with no
+    host sync: per step a control launch (v_max, dt, active flag, Kahan
+    clock on device), four sweeps and a halo refresh. The inputs are
+    copied into the working state first, so they stay intact. Returns
+    ((xH, yH, vxH, vyH, drP) working state, output cores, steps, t,
+    t_comp), the last three as 0-dim device tensors."""
     (rho0, p0, c_f, inv_sigma0, transport_coeff, g, mu, wf) = scalars
+    kform, kcut = _form(form, k_cut, spec.K)
     lib = _load()
     dev = xH.device
     work = [a.clone() for a in (xH, yH, vxH, vyH, drP)]
@@ -242,12 +310,15 @@ def chunk(spec, R: int, lay, xH, yH, vxH, vyH, drP, t_local, t_comp,
                           float(dt_visc), float(dt_body)],
                          dtype=torch.float32).to(dev)
     steps = torch.tensor([0, int(n_sub)], dtype=torch.int32).to(dev)
-    c = _const(spec, R, rho0, p0, c_f, inv_sigma0, transport_coeff)
+    cache, keep = _cache_bufs(spec, R, kcut, dev)
+    c = _const(spec, R, rho0, p0, c_f, inv_sigma0, transport_coeff, kcut)
     with torch.cuda.device(dev):
         _raise_on(lib.sph_chunk(ctypes.addressof(c), ctypes.addressof(bufs),
+                                ctypes.addressof(cache), kform,
                                 clock.data_ptr(), steps.data_ptr(),
                                 int(n_sub), _stream(dev)), "sph_chunk")
-    LAUNCHES["fused_chunk"] += 1
+    del keep  # a later allocation on this stream runs after the launches
+    LAUNCHES[launch_key("fused_chunk", form)] += 1
     return work, _outputs(out), steps[0], clock[0], clock[1]
 
 

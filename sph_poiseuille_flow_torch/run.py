@@ -66,17 +66,26 @@ def main(argv=None) -> int:
                              "cost-model pick)")
     parser.add_argument("--geom-cache", default="auto",
                         choices=["auto", "full", "ring", "partial", "none"],
-                        help="accepted for compatibility; the port "
-                             "recomputes pair geometry per sweep")
+                        help="pair-geometry cache of the fused kernels: "
+                             "none recomputes the geometry in every sweep; "
+                             "full and ring cache it for every anchor rank "
+                             "(one form on the GPU); partial caches ranks "
+                             "below --geom-kcut and recomputes the rest; "
+                             "auto picks as the JAX package does (env "
+                             "SPH_GEOM_CACHE overrides)")
     parser.add_argument("--geom-kcut", type=int, default=0,
-                        help="accepted for compatibility (see --geom-cache)")
+                        help="anchor ranks cached by --geom-cache partial "
+                             "(0 = the JAX package's budget pick; env "
+                             "SPH_GEOM_KCUT overrides)")
     parser.add_argument("--sub-steps", type=int, default=16,
                         help="steps per chunk call (capped by "
                              "--rebuild-every)")
     parser.add_argument("--fused-rows", default="auto",
                         choices=["auto", "0", "1"],
-                        help="accepted for compatibility; the port has one "
-                             "loop order")
+                        help="1: the candidate-row-outer fused kernels "
+                             "(a shared-memory window on the GPU; no "
+                             "geometry cache); 0/auto: the slot-outer form "
+                             "(env SPH_FUSED_ROWS overrides)")
     parser.add_argument("--plan-r", type=int, default=0,
                         help="row-group width R of the anchor-rank bound "
                              "(0 = the JAX package's pick)")
@@ -87,8 +96,10 @@ def main(argv=None) -> int:
                              "of at most N steps (0 = one call); "
                              "trajectory-preserving")
     parser.add_argument("--step-log-every", type=int, default=0,
-                        help="per-step log cadence (not yet ported: any "
-                             "value > 0 raises)")
+                        help="print a per-step log row every N steps "
+                             "(SPH_Poiseuille.m:285-291); N > 0 runs the "
+                             "interval step by step with the wall shear "
+                             "every step (one host sync per step)")
     parser.add_argument("--wall-visc-factor", type=float, default=4.0,
                         help="one-sided wall viscous factor (4.0 = the "
                              "reference's hard-coded calibration)")

@@ -98,6 +98,22 @@ class Simulation:
         _, u_full = pp.binned_profile_mean(y, vx, 0.0, cfg.DH, cfg.n_bins)
         self.full_profile_u.append(u_full)
 
+    def _drain_step_log(self, res) -> None:
+        """Print the interval's step-log rows in the reference's per-step
+        format (SPH_Poiseuille.m:285-291; JAX ``Simulation._drain_step_log``,
+        simulation.py:126-145)."""
+        from .stepper import STEP_LOG_CAP
+        cfg = self.cfg
+        n = int(res.step_log_n)
+        for r in np.asarray(res.step_log[:min(n, STEP_LOG_CAP)]):
+            self.log(f"step={int(r[0])}, t={r[1]:.6f}/{cfg.end_time:.6f}, "
+                     f"dt={r[2]:.4e}, pairs={int(r[3])}, vmax={r[4]:.4f}")
+            self.log(f"  [thick-wall-noslip] tau_bot={r[5]:.4f}, "
+                     f"tau_top={r[6]:.4f}, tau_target={cfg.tau_target:.4f}")
+        if n > STEP_LOG_CAP:
+            self.log(f"  (step log truncated: {n - STEP_LOG_CAP} rows "
+                     f"beyond the {STEP_LOG_CAP}-row buffer dropped)")
+
     # ---- restart ----
     def _try_restart(self, state: State) -> State:
         cfg = self.cfg
@@ -122,11 +138,13 @@ class Simulation:
         ``cfg.max_steps_per_dispatch > 0`` -- a sequence of step-bounded
         calls that reproduces the single call's trajectory bit for bit
         (the engine carries the interval-local Kahan clock and the
-        rollback chunk length across calls)."""
+        rollback chunk length across calls). With the step log on, only
+        the last call's rows are drained, as in the JAX package."""
         msd = int(getattr(self.cfg, "max_steps_per_dispatch", 0) or 0)
         if msd <= 0:
-            res = self.engine.run_interval(state, cands, geom,
-                                           fdtype.type(interval))
+            res = self.engine.run_interval(
+                state, cands, geom, fdtype.type(interval),
+                t_base=fdtype.type(self.t), step_base=self.step)
             self.host_syncs += res.n_syncs
             return res, int(res.n_steps)
         il = fdtype.type(interval)
@@ -140,7 +158,8 @@ class Simulation:
             kw = {} if sub_len is None else {"sub_len0": sub_len}
             res = self.engine.run_interval(
                 state, cands, geom, il, max_steps=msd, t_local0=t_loc,
-                t_comp0=t_cmp, **kw)
+                t_comp0=t_cmp, t_base=fdtype.type(self.t),
+                step_base=self.step + total, steps_done0=total, **kw)
             k = int(res.n_steps)
             total += k
             sub_len = res.sub_len
@@ -228,6 +247,9 @@ class Simulation:
             self.tau_history.append((self.t, float(res.tau_bottom),
                                      float(res.tau_top)))
             self.v_max_history.append(float(res.v_max))
+
+            if cfg.step_log_every > 0:
+                self._drain_step_log(res)
 
             self.log(
                 f"output point: t={self.t:.6f}, step={self.step}, "

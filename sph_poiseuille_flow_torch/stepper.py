@@ -16,6 +16,14 @@ step. The JAX package runs an output interval as nested
   inputs intact);
 * every sub-chunk group ends in a ``build_fused_layout`` rebuild.
 
+With ``step_log_every > 0`` the interval runs step by step instead (the
+JAX ``CellEngine._run_interval`` loop that ``PallasCellEngine`` falls back
+to, stepper.py:520-593): one fused step, the rebuild cadence
+``min(rebuild_every, 8)`` with the absolute-displacement guard, the wall
+shear every step and a step-log row every ``step_log_every`` steps (the
+reference's per-step log, SPH_Poiseuille.m:285-291). It takes one host
+sync per step; it is not the hot path.
+
 State lives as a ``NamedTuple`` of 1-D tensors on one explicit device.
 """
 
@@ -32,14 +40,12 @@ from .config import SPHConfig
 from .models.poiseuille import Scene
 from .ops import fused_cell as pc
 from .ops import neighbors as nbr
-from .ops.integration import periodic_wrap
+from .ops.integration import periodic_wrap, verlet_dt
 
 ROADMAP_ITEM = {
     "cellgrid": "ROADMAP.md queue 1 item 3-4 (pure-torch cell step and the "
                 "per-step CellEngine)",
     "gather": "ROADMAP.md queue 1 item 8 (gather engine)",
-    "step_log": "ROADMAP.md queue 1 item 4 (per-step engine, which serves "
-                "the in-loop step log)",
     "f64_cuda": "ROADMAP.md queue 2 (float64 CUDA kernels; the fused "
                 "kernels are float32, as Pallas compiles f32 only)",
 }
@@ -67,6 +73,10 @@ class State(NamedTuple):
     b22: torch.Tensor
 
 
+STEP_LOG_CAP = 1024  # step-log rows kept per interval
+STEP_LOG_COLS = 7    # step, t, dt, n_pairs, v_max, tau_bottom, tau_top
+
+
 class IntervalResult(NamedTuple):
     """One interval's outcome. Device values (tau, v_max, n_pairs,
     overflow) stay 0-dim tensors; values the host loop already knows are
@@ -87,6 +97,23 @@ class IntervalResult(NamedTuple):
     t_comp: Optional[np.floating] = None
     sub_len: Optional[int] = None
     n_syncs: int = 0            # host syncs the interval took
+    # step_log_every > 0 only: (STEP_LOG_CAP, STEP_LOG_COLS) host rows and
+    # the number of rows due (rows past the cap are counted, not kept)
+    step_log: Optional[np.ndarray] = None
+    step_log_n: int = 0
+
+
+def _log_row_update(every, logbuf, logn, g_step, t_after, dt, n_pairs,
+                    vmax, tau_b, tau_t):
+    """Append one step-log row to ``logbuf`` (in place) when ``g_step``
+    lands on the ``every``-step cadence (JAX ``_log_row_update``,
+    stepper.py:127-138). Rows beyond STEP_LOG_CAP are dropped but still
+    counted. Returns the new row count."""
+    if g_step % every != 0:
+        return logn
+    if logn < STEP_LOG_CAP:
+        logbuf[logn] = (g_step, t_after, dt, n_pairs, vmax, tau_b, tau_t)
+    return logn + 1
 
 
 def _t_add(t, comp, dt):
@@ -207,23 +234,126 @@ class PallasCellEngine:
             yH=pc.halo_ify(spec, nl.refy_p), vxH=pc.halo_ify(spec, vxP),
             vyH=pc.halo_ify(spec, vyP), drP=drP)
 
+    def _abs_guard(self, lay, x, y):
+        """The per-step path's conservative ABSOLUTE-displacement guard
+        (JAX ``fused_guard``, stepper.py:660-666)."""
+        spec = self.spec
+        if spec.skin <= 0.0:
+            return torch.zeros((), dtype=torch.bool, device=self.device)
+        ddx = x - pc.take_p(lay, lay.refx_p)
+        ddx = ddx - spec.DL * torch.round(ddx / spec.DL)
+        ddy = y - pc.take_p(lay, lay.refy_p)
+        return torch.max(ddx * ddx + ddy * ddy) > (0.5 * spec.skin) ** 2
+
+    def step(self, state: State, lay, step_idx: int = 0,
+             remain=float("inf"), g=None, mu=None):
+        """One step of the per-step path (JAX ``PallasCellEngine._step``,
+        stepper.py:640-701): the fused step, then a rebuild every
+        ``min(rebuild_every, 8)`` steps (positions stay unwrapped between
+        rebuilds), the absolute-displacement guard and the wall shear on
+        the post-rebuild layout. Returns (state, layout, n_pairs, dt,
+        overflow, guard, tau_bottom, tau_top) as tensors."""
+        cfg, spec = self.cfg, self.spec
+        g = cfg.gravity_g if g is None else g
+        mu = cfg.mu if mu is None else mu
+        nf = spec.n_fluid
+        dt = verlet_dt(state.vx[:nf], state.vy[:nf], cfg.c_f, cfg.h,
+                       mu / cfg.rho0, g, remain)
+        out = pc.fused_cell_step(
+            spec, lay, state.x, state.y, state.vx, state.vy,
+            state.drho_dt, dt, cfg.rho0, cfg.p0, cfg.c_f, cfg.inv_sigma0,
+            cfg.transport_coeff, g, mu, cfg.wall_visc_factor)
+        x, y = out["x"], out["y"]
+        rb_eff = min(cfg.rebuild_every, 8)
+        if rb_eff <= 1 or step_idx % rb_eff == 0:
+            x = periodic_wrap(spec, x)
+            lay = self._rebuild(x, y)
+        if rb_eff <= 1:
+            guard = torch.zeros((), dtype=torch.bool, device=self.device)
+        else:
+            guard = self._abs_guard(lay, x, y)
+        tau_b, tau_t = pc.fused_wall_shear(
+            spec, lay, x, y, out["vx"], out["vol"], out["b11"], out["b12"],
+            out["b21"], out["b22"], mu, cfg.wall_visc_factor)
+        new_state = State(
+            x=x, y=y, vx=out["vx"], vy=out["vy"], rho=out["rho"],
+            p=out["p"], drho_dt=out["drho_dt"], fx=out["fx"], fy=out["fy"],
+            fpx=out["fpx"], fpy=out["fpy"], vol=out["vol"],
+            b11=out["b11"], b12=out["b12"], b21=out["b21"],
+            b22=out["b22"])
+        return (new_state, lay, out["n_pairs"], dt, lay.overflow, guard,
+                tau_b, tau_t)
+
+    def _run_interval_steps(self, state: State, lay, geom, interval_len,
+                            g, mu, max_steps, t_local0, t_comp0, t_base,
+                            step_base, steps_done0) -> IntervalResult:
+        """The per-step interval loop with the step log (JAX
+        ``CellEngine._run_interval``, stepper.py:520-593). One host sync
+        per step reads dt (for the Kahan clock) and the step's log
+        values; the flags stay on the device until the end."""
+        cfg, spec = self.cfg, self.spec
+        f = np.float32 if self.dtype == torch.float32 else np.float64
+        every = int(cfg.step_log_every)
+        nf = spec.n_fluid
+        interval = f(interval_len)
+        t_local = f(0.0) if t_local0 is None else f(t_local0)
+        t_comp = f(0.0) if t_comp0 is None else f(t_comp0)
+        t_base = f(0.0) if t_base is None else f(t_base)
+        step_base = 0 if step_base is None else int(step_base)
+        sd0 = 0 if steps_done0 is None else int(steps_done0)
+        logbuf = np.zeros((STEP_LOG_CAP, STEP_LOG_COLS), dtype=f)
+        logn = n_steps = n_syncs = 0
+        npairs = torch.as_tensor(geom, device=self.device).to(torch.int32)
+        overflow = lay.overflow
+        guard = torch.zeros((), dtype=torch.bool, device=self.device)
+        tau_b = tau_t = torch.zeros((), dtype=self.dtype, device=self.device)
+        while t_local < interval and (max_steps is None
+                                      or n_steps < int(max_steps)):
+            state, lay, npairs, dt, ovf, grd, tau_b, tau_t = self.step(
+                state, lay, sd0 + n_steps, interval - t_local, g, mu)
+            overflow = torch.logical_or(overflow, ovf)
+            guard = torch.logical_or(guard, grd)
+            vmax = torch.sqrt(torch.max(state.vx[:nf] ** 2
+                                        + state.vy[:nf] ** 2))
+            dt_h, *row = torch.stack([dt, npairs.to(self.dtype), vmax,
+                                      tau_b, tau_t]).tolist()
+            n_syncs += 1
+            t_local, t_comp = _t_add(t_local, t_comp, f(dt_h))
+            logn = _log_row_update(every, logbuf, logn,
+                                   step_base + n_steps + 1,
+                                   t_base + t_local, dt_h, *row)
+            n_steps += 1
+        v_max = torch.sqrt(torch.max(state.vx[:nf] ** 2
+                                     + state.vy[:nf] ** 2))
+        return IntervalResult(
+            state=state, cands=lay, geom=npairs, tau_bottom=tau_b,
+            tau_top=tau_t, n_steps=n_steps, overflow=overflow,
+            skin_guard=bool(guard), v_max=v_max, n_pairs=npairs,
+            t_local=t_local, t_comp=t_comp, n_syncs=n_syncs + 1,
+            step_log=logbuf, step_log_n=logn)
+
     def run_interval(self, state: State, lay, geom, interval_len,
                      g=None, mu=None, max_steps=None, t_local0=None,
-                     t_comp0=None, sub_len0=None) -> IntervalResult:
+                     t_comp0=None, sub_len0=None, t_base=None,
+                     step_base=None, steps_done0=None) -> IntervalResult:
         """Run to the next output point (the JAX
         ``PallasCellEngine._run_interval``, stepper.py:732-1056).
         ``max_steps``/``t_local0``/``t_comp0``/``sub_len0``: trajectory-
         preserving step-bounded dispatch; the bound binds at sub-chunk
         GROUP boundaries, so a call may overshoot it by up to
-        rebuild_every - 1 steps."""
+        rebuild_every - 1 steps. With ``step_log_every > 0`` the interval
+        runs step by step (``_run_interval_steps``); ``t_base`` and
+        ``step_base`` (the interval's start time and global step) number
+        its log rows, ``steps_done0`` keeps its rebuild cadence across a
+        split dispatch. The chunk path ignores those three."""
         cfg, spec = self.cfg, self.spec
-        if cfg.step_log_every > 0:
-            raise NotImplementedError(
-                "step_log_every > 0 is not ported: "
-                + ROADMAP_ITEM["step_log"])
-        f = np.float32 if self.dtype == torch.float32 else np.float64
         g = cfg.gravity_g if g is None else g
         mu = cfg.mu if mu is None else mu
+        if cfg.step_log_every > 0:
+            return self._run_interval_steps(
+                state, lay, geom, interval_len, g, mu, max_steps, t_local0,
+                t_comp0, t_base, step_base, steps_done0)
+        f = np.float32 if self.dtype == torch.float32 else np.float64
         scalars = (cfg.rho0, cfg.p0, cfg.c_f, cfg.inv_sigma0,
                    cfg.transport_coeff, g, mu, cfg.wall_visc_factor)
         interval = f(interval_len)

@@ -1,11 +1,12 @@
 """The port's command line end to end on a tiny ini with ``--device cpu``,
-its five ``SPH_*_OVERRIDE`` environment variables, ``--profile``, the flags
-that are not ported yet, and the rule that the package never imports
-jax."""
+its five ``SPH_*_OVERRIDE`` environment variables, ``--profile``, the
+kernel-form flags and ``--step-log-every``, the flags that are not ported
+yet, and the rule that the package never imports jax."""
 
 import importlib.util
 import json
 import os
+import re
 import subprocess
 import sys
 
@@ -126,6 +127,45 @@ def test_postprocess_only(cli_run, capsys):
 def test_unported_flags_raise(flag):
     with pytest.raises(NotImplementedError, match="not yet ported"):
         cli.main(["--device", "cpu"] + flag)
+
+
+@pytest.mark.parametrize("flags,want", [
+    ([], ("full", 16)),
+    (["--geom-cache", "none"], ("none", 0)),
+    (["--geom-cache", "ring"], ("ring", 16)),
+    (["--geom-cache", "partial", "--geom-kcut", "5"], ("partial", 5)),
+    (["--fused-rows", "1"], ("rows", 0)),
+])
+def test_form_flags_reach_the_engine(tmp_path, monkeypatch, flags, want):
+    """--geom-cache, --geom-kcut and --fused-rows pick the form the engine
+    runs (on the tiny ini, "auto" is the full cache)."""
+    from sph_poiseuille_flow_torch import simulation
+    from sph_poiseuille_flow_torch.ops import fused_cell as fc
+    seen = {}
+
+    def fake_run(self):
+        seen["form"] = fc.chunk_form(self.engine.spec, torch.float32)
+        return dict(particle_steps_per_sec=0.0, step=0, tau_history=[],
+                    host_syncs=0, passed=True)
+
+    monkeypatch.setattr(simulation.Simulation, "run", fake_run)
+    ini = tmp_path / "tiny.ini"
+    ini.write_text(TINY_INI)
+    assert cli.main(["--config", str(ini), "--device", "cpu",
+                     "--base-dir", str(tmp_path)] + flags) == 0
+    assert seen["form"] == want
+
+
+def test_step_log_flag_prints_rows(tmp_path, capsys):
+    ini = tmp_path / "tiny.ini"
+    ini.write_text(TINY_INI.replace("end_time = 0.1", "end_time = 0.004")
+                   .replace("output_interval = 0.05",
+                            "output_interval = 0.002"))
+    cli.main(["--config", str(ini), "--device", "cpu", "--base-dir",
+              str(tmp_path), "--step-log-every", "1"])
+    out = capsys.readouterr().out
+    steps = [int(m) for m in re.findall(r"^step=(\d+), t=", out, re.M)]
+    assert steps == list(range(1, len(steps) + 1)) and len(steps) > 2
 
 
 def test_profile_writes_trace_and_summary(tmp_path, capsys):

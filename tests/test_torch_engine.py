@@ -214,12 +214,17 @@ def test_unported_engines_raise(engine):
 
 
 def test_step_log_raises():
+    """step_log_every > 0 no longer raises: the interval runs step by step
+    and returns a row every 5 steps, numbered from ``step_base``."""
     cfg = port_cfg(default_cfg(DL=1.0, DH=0.5), step_log_every=5)
     scene = build_scene(cfg)
     eng = make_engine(cfg, scene, "cpu")
     s, lay, g, _ = eng.init(initial_state(cfg, scene, "cpu"))
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        eng.run_interval(s, lay, g, np.float32(0.01))
+    r = eng.run_interval(s, lay, g, np.float32(0.01), step_base=100)
+    assert r.n_steps >= 5 and r.step_log_n == r.n_steps // 5
+    np.testing.assert_array_equal(r.step_log[:r.step_log_n, 0],
+                                  100 + 5 * np.arange(1, r.step_log_n + 1))
+    assert r.n_syncs == r.n_steps + 1
 
 
 def test_float64_on_cuda_raises():

@@ -135,10 +135,21 @@ def case():
         return {k: np.asarray(v) for k, v in d.items()}
 
     return dict(
-        cfg=cfg,
+        cfg=cfg, specs=(jspec, tspec),
         step={"dt0": (host(j0), host({k: v.numpy() for k, v in t0.items()})),
               "dt": (host(j1), host({k: v.numpy() for k, v in t1.items()}))},
         chunk=(jch, tch), shear=(jsh, tsh))
+
+
+def test_cores_run_the_full_geometry_cache(case):
+    """The JAX side runs "auto", which is the full geometry cache on this
+    grid; the port resolves the same, so every core test above holds the
+    port's cached form against the JAX package's."""
+    jspec, tspec = case["specs"]
+    K = jspec.K
+    assert jfc.cache_plan(jspec, jnp.float32) == ("full", K)
+    assert tfc.step_form(tspec, torch.float32) == ("full", K)
+    assert tfc.chunk_form(tspec, torch.float32) == ("full", K)
 
 
 def _close(got, ref, tol, name, p0):
@@ -258,6 +269,19 @@ def test_kernel_build_needs_nvcc(monkeypatch):
     monkeypatch.setattr(fcc.os.path, "exists", lambda p: False)
     with pytest.raises(RuntimeError, match="nvcc not found"):
         fcc.build()
+
+
+@pytest.mark.parametrize("form,k_cut", [("bogus", 0), ("partial", 0),
+                                        ("full", 99)])
+def test_kernel_forms_refuse_what_they_cannot_serve(case, form, k_cut):
+    """A form the kernels do not have, or a cache that cannot cover its
+    ranks, raises before anything is built or launched: no form gives way
+    to another."""
+    from sph_poiseuille_flow_torch.ops import fused_cell_cuda as fcc
+    spec = case["specs"][1]
+    with pytest.raises(ValueError, match="form"):
+        fcc.step(spec, 2, None, None, None, None, None, None, 0.0,
+                 (0.0,) * 8, form, k_cut)
 
 
 def test_f64_step_matches_cellgrid():
