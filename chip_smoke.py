@@ -20,6 +20,20 @@ Phases, each of which exits non-zero on failure before the last line:
    K=14, nx=100): the fused step at both dts, a 16-step chunk, the wall
    shear. The rows kernels are also held to the recompute kernels, which
    they should equal bit for bit;
+2b. the probes' kernels at both grids in every form: each sweep prefix
+   of the step (``probes.fused_step_sweeps``) equals the kernel's full step
+   bit for bit on the cores it writes, leaves the others zero and holds
+   its plain prefix; each sweep relaunched over a completed step's buffers
+   (``StepBuffers``) leaves every core bit-equal (the cache form's sweep 1,
+   which folds Vol_j into its list in place, after a restore of the list);
+   the no-op writes x's first halo row into vol's and nothing else; the
+   one-hot expand equals ``repeat`` bit for bit at the JAX test's shape and
+   at (b)'s window. Then the probe entry point (``python -m
+   sph_poiseuille_flow_torch.probe``) runs at (b) with a short warm-up in
+   the recompute, cache and rows forms, with the launch counts reset
+   before each run and its kernels nonzero after it; its JSON gives the
+   sweeps', the no-op's and the expand's times, plain times and bounds in
+   the kernels line;
 3. drive the main path through the CLI (``run.main``): (a) ``config.ini``
    as shipped (20 s, "auto", so the geometry cache), which must pass its
    5% L2 gate; (b) the dp=0.01 channel with the shipping knobs for a few
@@ -48,7 +62,6 @@ import io
 import json
 import os
 import re
-import subprocess
 import sys
 import time
 import traceback
@@ -88,7 +101,7 @@ CNT_CHUNK = 2.0
 
 
 def _abs_bound(name: str, tol: float, p0: float, cnt: float):
-    if name.startswith("pP"):
+    if name.startswith(("pP", "phH")):
         return tol * p0
     if name.startswith("cnt"):
         return cnt
@@ -99,15 +112,6 @@ def _say(msg: str) -> None:
     print(msg, flush=True)
 
 
-def _card_line() -> str:
-    r = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
-                        "--format=csv,noheader"], capture_output=True,
-                       text=True, timeout=60)
-    if r.returncode != 0:
-        raise RuntimeError(f"nvidia-smi failed: {r.stderr.strip()}")
-    return r.stdout.strip().splitlines()[0]
-
-
 class Check:
     """Collects kernel-vs-plain errors per kernel."""
 
@@ -115,7 +119,10 @@ class Check:
         self.max_abs = {}
 
     def core(self, kernel: str, name: str, got, ref, tol: float,
-             absolute: float = None, record: bool = True) -> None:
+             absolute: float = None, record: bool = True,
+             say: bool = True) -> float:
+        """Hold ``got`` to ``ref``; returns the error relative to the
+        core's scale."""
         import torch
         if got.shape != ref.shape:
             raise AssertionError(f"{kernel}/{name}: shape {tuple(got.shape)}"
@@ -135,13 +142,15 @@ class Check:
         scale = max(1.0, float(ref.abs().max()))
         bound = tol * scale if absolute is None else absolute
         rel = err / scale
-        _say(f"  {kernel:17s} {name:18s} max_abs={err:.3e} rel={rel:.3e} "
-             f"bound={bound:.1e}")
+        if say:
+            _say(f"  {kernel:17s} {name:18s} max_abs={err:.3e} "
+                 f"rel={rel:.3e} bound={bound:.1e}")
         if record:
             self.max_abs[kernel] = max(self.max_abs.get(kernel, 0.0), err)
         if not err <= bound:
             raise AssertionError(f"{kernel}/{name}: kernel vs plain error "
                                  f"{err:.3e} above {bound:.1e}")
+        return rel
 
 
 def _grids():
@@ -337,6 +346,199 @@ def phase_kernels(device, check: Check, label: str, cfg) -> dict:
     return dict(cfg=cfg, spec=spec, lay=lay, args=args, sc=sc, dt=dt, sh=sh)
 
 
+def _equal(what: str, got: dict, ref: dict, keys) -> None:
+    import torch
+    bad = [k for k in keys if not torch.equal(got[k], ref[k])]
+    if bad:
+        raise AssertionError(f"{what}: {bad} not bit-equal")
+
+
+def phase_probes(device, check: Check, label: str, k: dict) -> None:
+    """The probes' kernels at one grid, in every form: the sweep prefixes
+    against the kernel's full step (bit for bit on the cores they write,
+    zero elsewhere) and against the plain prefixes, each single sweep
+    relaunched over a completed step's buffers (bit-equal; the cache
+    form's sweep 1 restored first), the no-op; at (b) also the expand.
+    Their times come from the probe runs (``phase_probe_cli``)."""
+    import torch
+    from sph_poiseuille_flow_torch.ops import fused_cell as fc
+    from sph_poiseuille_flow_torch.ops import fused_cell_cuda as fcc
+    from sph_poiseuille_flow_torch.ops import probes
+
+    cfg, spec, lay, args, sc, dt = (k[n] for n in ("cfg", "spec", "lay",
+                                                   "args", "sc", "dt"))
+    R = fc.plan(spec)[0]
+    for flabel, knobs in FORMS:
+        fspec = _form_spec(spec, knobs)
+        form = fc.step_form(fspec, torch.float32)
+        key = fcc.launch_key("fused_step_sweeps", form[0])
+        tag = f"{label}/{flabel}"
+        full = fc.fused_step_cores(fspec, lay, *args, dt, *sc)
+        worst = 0.0
+        for m in range(1, 5):
+            got = probes.fused_step_sweeps(fspec, lay, *args, dt, *sc,
+                                           first=0, count=m)
+            ref = probes.fused_step_sweeps_plain(fspec, lay, *args, dt, *sc,
+                                                 first=0, count=m)
+            torch.cuda.synchronize()
+            written = {c for s in range(m) for c in probes.SWEEP_WRITES[s]}
+            _equal(f"{key} ({tag}) prefix {m} vs the step", got, full,
+                   written & set(full))
+            for name, v in got.items():
+                if name not in written:
+                    if bool(v.any()):
+                        raise AssertionError(f"{key} ({tag}) prefix {m} "
+                                             f"wrote {name}")
+                    continue
+                worst = max(worst, check.core(
+                    key, f"{tag}/p{m}:{name}", v, ref[name], TOL_STEP,
+                    _abs_bound(name, TOL_STEP, cfg.p0, 0.0), say=False))
+
+        # each sweep again over the completed step's buffers
+        b = fcc.StepBuffers(fspec, R, lay, *args, dt, sc, *form)
+        b.sweeps(0, 1)
+        if b.rewrites:
+            b.snapshot()
+        b.sweeps(1, 3)
+        torch.cuda.synchronize()
+        done = {c: v.clone() for c, v in b.outputs().items()}
+        _equal(f"{key} ({tag}) buffers vs the step",
+               dict(done, cnt=fc._cnt_rows(fspec, done["cnt"])), full, full)
+        if b.rewrites:
+            try:
+                b.sweeps(1, 1)
+                raise AssertionError(f"{key}: a second sweep 1 on a folded "
+                                     "list did not raise")
+            except RuntimeError:
+                pass
+        for s in range(4):
+            if s in b.rewrites:
+                b.restore()
+            b.sweeps(s, 1)
+            torch.cuda.synchronize()
+            _equal(f"{key} ({tag}) sweep {s} relaunched", b.outputs(), done,
+                   done)
+
+        o = probes.fused_noop(fspec, lay, *args, dt, *sc)
+        torch.cuda.synchronize()
+        x0 = args[0][0, 0, :]
+        if not torch.equal(o["volH"][0, 0, :], x0):
+            raise AssertionError(f"fused_noop ({tag}): vol[0, 0, :] != "
+                                 "x[0, 0, :]")
+        o["volH"][0, 0, :] = 0.0
+        if any(bool(v.any()) for v in o.values()):
+            raise AssertionError(f"fused_noop ({tag}) wrote past its row")
+        check.max_abs["fused_noop"] = 0.0
+        _say(f"probes ({tag}) {key}: prefixes 1-4 bit-equal to the step on "
+             f"their cores and zero elsewhere, vs plain max rel "
+             f"{worst:.2e}; sweeps 0-3 relaunched bit-equal"
+             f"{' (sweep 1 restored)' if b.rewrites else ''}; no-op exact")
+    if label == "b":
+        phase_expand(device, check, spec)
+
+
+def phase_expand(device, check: Check, spec) -> None:
+    """The one-hot expand bit-equal to ``repeat`` at the JAX test's shape
+    (K=4, bx=8) and at the (b) window's (9K, nx), on values that need more
+    than 10 mantissa bits; what TF32 would make of the product is printed
+    as a record."""
+    import numpy as np
+    import torch
+    from sph_poiseuille_flow_torch.ops import probes
+
+    for K, bx in ((4, 8), (spec.K, spec.nx)):
+        rng = np.random.default_rng(3)
+        rows = 9 * K
+        v = np.where(rng.random((rows, bx)) < 0.5,
+                     rng.integers(1, 8192, (rows, bx)) * 2 + 1,
+                     rng.random((rows, bx)) * 3.0).astype(np.float32)
+        v = torch.as_tensor(v, device=device)
+        want = v.repeat(1, K)
+        got = probes.expand_onehot(v, K)
+        ref = probes.expand_onehot_plain(v, K)
+        torch.cuda.synchronize()
+        if not (torch.equal(got, want) and torch.equal(ref, want)):
+            raise AssertionError(f"expand_onehot ({rows}, {bx}) x{K}: not "
+                                 "v tiled exactly")
+        E = probes.onehot_tiling(bx, K, v)
+        torch.backends.cuda.matmul.allow_tf32 = True
+        try:
+            n_tf32 = int((torch.matmul(v, E) != want).sum())
+        finally:
+            torch.backends.cuda.matmul.allow_tf32 = False
+        _say(f"expand_onehot ({rows}, {bx}) x{K}: bit-equal to repeat; "
+             f"torch.matmul under TF32 gets {n_tf32} of {want.numel()} "
+             "elements wrong (a record)")
+    check.max_abs["expand_onehot"] = 0.0
+
+
+# the probe runs at (b): (name, flags, the LAUNCHES key of its sweeps)
+PROBE_RUNS = (("none", [], "fused_step_sweeps"),
+              ("cache", ["--geom-cache", "auto"], "fused_step_sweeps_cache"),
+              ("rows", ["--fused-rows", "1"], "fused_step_sweeps_rows"))
+
+
+def phase_probe_cli() -> tuple:
+    """The probe entry point at (b) with a short warm-up in the default
+    form, under the cache and under the rows form: the counts are reset
+    before each run and its kernels must have launched in it. Returns
+    ({run: launch counts}, {run: the probe's JSON}), whose times, plain
+    times and bounds make the probes' entries of the kernels line."""
+    from sph_poiseuille_flow_torch import probe
+    from sph_poiseuille_flow_torch.ops import fused_cell_cuda as fcc
+
+    counts, results = {}, {}
+    for name, flags, key in PROBE_RUNS:
+        buf = io.StringIO()
+        fcc.reset_launch_counts()
+        with contextlib.redirect_stdout(buf):
+            rc = probe.main(["0.01", "0.1", "14", "0.3", "--lane-pack-nx",
+                             "100", "--rebuild-every", "128", "--n", "20"]
+                            + flags)
+        counts[name] = dict(fcc.LAUNCHES)
+        out = buf.getvalue().splitlines()
+        with open(os.path.join(OUT, f"probe_{name}.txt"), "w") as f:
+            f.write(buf.getvalue())
+        for ln in out:
+            if ln.startswith(("spec:", "developed", "full", "sweep",
+                              "sum", "no-op", "one-hot")):
+                _say(f"  {ln}")
+        _say(out[-1])
+        res = results[name] = json.loads(out[-1])["probe"]
+        if rc != 0 or res["device"] != "cuda":
+            raise AssertionError(f"probe ({name}): rc {rc}, {res['device']}")
+        for kk in (key, "fused_noop", "expand_onehot"):
+            if counts[name][kk] <= 0:
+                raise AssertionError(f"probe ({name}): kernel {kk} was never "
+                                     "launched")
+        _say(f"probe ({name}) launches={counts[name]}")
+    return counts, results
+
+
+def _probe_times(results: dict) -> dict:
+    """{kernels-line name: (ms, plain_ms, bound_ms, bound_by, library_ms)}
+    from the probe runs' JSON: each sweep from the run of its form (device
+    time on persistent buffers; for the cache form's sweep 1, which must
+    be restored before each relaunch, its prefix marginal inside the
+    step), the no-op (on buffers) and the expand from the default form's
+    run."""
+    out = {}
+    for name, _, key in PROBE_RUNS:
+        r = results[name]
+        for s in range(4):
+            out[f"{key}:sweep{s}"] = (
+                r["ms"].get(f"sweep{s}_in_step", r["ms"][f"sweep{s}"]),
+                r["ms"][f"plain_sweep{s}"], r["bound_ms"][f"sweep{s}"],
+                r["bound_by"][f"sweep{s}"], None)
+    r = results[PROBE_RUNS[0][0]]
+    for name, kind, ms in (("fused_noop", "noop", "noop_bufs"),
+                           ("expand_onehot", "expand", "expand")):
+        out[name] = (r["ms"][ms], r["ms"][f"plain_{kind}"],
+                     r["bound_ms"][kind], r["bound_by"][kind],
+                     r["ms"][f"library_{kind}"])
+    return out
+
+
 def _run_cli(name: str, ini_text, extra, capture: bool = False) -> dict:
     """One in-process CLI run; returns the result dict of the run (with
     its standard output under "stdout" when ``capture``)."""
@@ -508,62 +710,6 @@ def _time(fn, reps: int) -> float:
     return e0.elapsed_time(e1) / reps
 
 
-# Least time for the work: the larger of
-# the bytes the function must move (each input read once, each output
-# written once) over 3.35 TB/s and its float32 operations over 67 TFLOP/s
-# (one H100 SXM at 700 W). Operations counted from csrc/fused_cell.cu, for
-# the pairs these inputs hold: the window test of every visited candidate
-# (dx, dy, r^2 and two compares: 7); per valid pair the geometry (rsqrt, r,
-# q, w, dw, masks, unit vector: 20), sweep 0 (8), sweep 1 (13), sweep 2's
-# two passes with the projections done once (62 + 41) and sweep 3 (15):
-# 159; per visited anchor the density, the KGC inversion, the limiter, the
-# kick and the update (120). The shear: the test per candidate and, per
-# valid wall pair, the geometry and its term (20 + 21).
-PEAK_OPS, PEAK_BYTES = 67e12, 3.35e12
-TEST_OPS, STEP_PAIR_OPS, STEP_ANCHOR_OPS, SHEAR_PAIR_OPS = 7, 159, 120, 41
-
-
-def _pair_counts(spec, lay, xH, yH) -> dict:
-    """Visited anchors, their candidates, valid pairs and valid wall pairs
-    of these position cores."""
-    import torch
-    from sph_poiseuille_flow_torch.ops import fused_cell as fc
-    nyp = xH.shape[0] - 2
-    vis = fc._visited(spec, lay.occ, nyp).unsqueeze(-1).to(xH.dtype)
-    _, _, _, _, _, m1, mw = fc._geometry(
-        spec, fc._pair(fc._anc(xH)), fc._pair(fc._anc(yH)),
-        fc._win(spec, xH), fc._win(spec, yH), fc._win(spec, lay.isf_c),
-        need_w=False)
-    anchors = float(vis.sum()) * spec.nx
-    return dict(anchors=anchors, cands=anchors * 9 * spec.K,
-                pairs=float(torch.sum((m1 + mw) * vis)),
-                wall=float(torch.sum(mw * vis)))
-
-
-def _bound(kind: str, spec, n: dict, n_steps: int = 1):
-    """(bound_ms, bound_by) of one call of a step, a chunk of ``n_steps``
-    steps or the shear on a grid with pair counts ``n``."""
-    from sph_poiseuille_flow_torch.ops import fused_cell as fc
-    nyp = fc.plan(spec)[3]
-    halo = (nyp + 2) * spec.K * (spec.nx + 2) * 4
-    plain = nyp * spec.K * spec.nx * 4
-    if kind == "shear":
-        nbytes = 12 * halo + 2 * plain
-        ops = n["cands"] * TEST_OPS + n["wall"] * SHEAR_PAIR_OPS
-    else:
-        step_ops = (n["cands"] * TEST_OPS + n["pairs"] * STEP_PAIR_OPS
-                    + n["anchors"] * STEP_ANCHOR_OPS)
-        if kind == "step":   # 8 halo'd + dr in; 7 halo'd + 9 plain + cnt out
-            nbytes = 8 * halo + plain + 7 * halo + 10 * plain
-        else:                # 9 halo'd + dr in; state 5 + 17 aux cores out
-            nbytes = 8 * halo + plain + 4 * halo + plain + 7 * halo \
-                + 10 * plain
-        ops = step_ops * n_steps
-    t_ops, t_bytes = ops / PEAK_OPS, nbytes / PEAK_BYTES
-    return (1e3 * max(t_ops, t_bytes),
-            "operations" if t_ops >= t_bytes else "bytes")
-
-
 def phase_timing(device, kern_b: dict) -> dict:
     """Kernel and plain times of every form of step and chunk at the (b)
     shapes and at dp=0.025, and of the shear at (b); with each call's
@@ -573,6 +719,7 @@ def phase_timing(device, kern_b: dict) -> dict:
     from sph_poiseuille_flow_torch.ops import fused_cell as fc
     from sph_poiseuille_flow_torch.ops import fused_cell_cuda as fcc
     from sph_poiseuille_flow_torch.ops.integration import verlet_dt
+    from sph_poiseuille_flow_torch.utils import roofline
 
     cfg25 = derive_config(**DP0025)
     _, spec25, lay25, c25, (vx, vy) = _jittered_case(cfg25, device)
@@ -586,7 +733,7 @@ def phase_timing(device, kern_b: dict) -> dict:
     for grid, k in grids.items():
         spec, lay, args, sc, dt = (k[n] for n in ("spec", "lay", "args",
                                                   "sc", "dt"))
-        n = _pair_counts(spec, lay, args[0], args[1])
+        n = roofline.pair_counts(spec, lay, args[0], args[1])
         _say(f"timing ({grid}): {n['anchors']:.0f} visited anchors, "
              f"{n['pairs']:.0f} valid pairs, {n['wall']:.0f} wall pairs")
         for flabel, knobs in FORMS:
@@ -621,7 +768,7 @@ def phase_timing(device, kern_b: dict) -> dict:
                 k1 = _time(kern, reps)
                 k2 = _time(kern, reps)
                 p2 = _time(plain, reps)
-                bound = _bound(kind, spec, n, steps)
+                bound = roofline.bound(kind, spec, n, steps)
                 name = fcc.launch_key(base, form)
                 _say(f"timing ({grid}) {name:17s} [{flabel:7s}] kernel "
                      f"{k1:.4f}/{k2:.4f} ms, plain {p1:.4f}/{p2:.4f} ms, "
@@ -639,8 +786,8 @@ def phase_timing(device, kern_b: dict) -> dict:
                20)
     p2 = _time(lambda: fc.fused_wall_shear_cores_plain(k["spec"], k["lay"],
                                                        *sh), 20)
-    n = _pair_counts(k["spec"], k["lay"], sh[0], sh[1])
-    bound = _bound("shear", k["spec"], n)
+    n = roofline.pair_counts(k["spec"], k["lay"], sh[0], sh[1])
+    bound = roofline.bound("shear", k["spec"], n)
     _say(f"timing (b) fused_wall_shear  kernel {k1:.4f}/{k2:.4f} ms, plain "
          f"{p1:.4f}/{p2:.4f} ms, bound {bound[0]:.4f} ms ({bound[1]})")
     out[("b", "fused_wall_shear")] = (min(k1, k2), min(p1, p2)) + bound
@@ -660,6 +807,15 @@ REPLACES = {
     "fused_chunk_cache": f"{_TPU}:422",
     "fused_chunk_rows": f"{_TPU}:1081",
     "fused_wall_shear": f"{_TPU}:1928",
+}
+# the probes' kernels: _step_kernel on a grid cut to a sweep range
+# (call_sweeps; prefix_call of experiments/profile_fused.py:72 is the range
+# from sweep 0), the no-op body, the one-hot lane tiling
+PROBE_REPLACES = {
+    **{f"{key}:sweep{s}": "experiments/profile_r3.py:115"
+       for _, _, key in PROBE_RUNS for s in range(4)},
+    "fused_noop": "experiments/profile_r3.py:170",
+    "expand_onehot": "tests/test_pallas.py:155",
 }
 
 
@@ -683,7 +839,8 @@ def main() -> int:
     torch.backends.cudnn.allow_tf32 = False
     device = torch.device("cuda", 0)
     os.makedirs(OUT, exist_ok=True)
-    card = _card_line()
+    from sph_poiseuille_flow_torch.probe import card_line
+    card = card_line()
     _say(f"card: {card}; torch {torch.__version__} cuda "
          f"{torch.version.cuda}; python {sys.version.split()[0]}")
 
@@ -693,6 +850,12 @@ def main() -> int:
         phase_build()
         kern = {label: phase_kernels(device, check, label, cfg)
                 for label, cfg in _grids()}
+        t1 = time.perf_counter()
+        for label in kern:
+            phase_probes(device, check, label, kern[label])
+        probe_counts, probe_res = phase_probe_cli()
+        probe_times = _probe_times(probe_res)
+        _say(f"probe phase done in {time.perf_counter() - t1:.1f} s")
         main_res = phase_main()
         timing = phase_timing(device, kern["b"])
         _say(f"all phases done in {time.perf_counter() - t0:.1f} s")
@@ -715,6 +878,17 @@ def main() -> int:
             "max_abs_err": check.max_abs[name], "ms": ms,
             "plain_ms": plain_ms, "bound_ms": bound_ms,
             "bound_by": bound_by, "library_ms": None})
+    for name, where in PROBE_REPLACES.items():
+        ms, plain_ms, bound_ms, bound_by, library_ms = probe_times[name]
+        key = name.split(":")[0]
+        kernels.append({
+            "name": name, "route": "cuda",
+            "source": "sph_poiseuille_flow_torch/csrc/fused_cell.cu",
+            "replaces": where,
+            "launches": sum(c[key] for c in probe_counts.values()),
+            "max_abs_err": check.max_abs[key], "ms": ms,
+            "plain_ms": plain_ms, "bound_ms": bound_ms,
+            "bound_by": bound_by, "library_ms": library_ms})
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"timing": {f"{g}:{n}": v
                                  for (g, n), v in timing.items()}}))

@@ -6,7 +6,9 @@ package's. The fused cell-layout engine runs its kernels -- the fused
 step and the multi-step chunk, each in the recompute, geometry-cache and
 row-outer forms the layout knobs select, and the wall-shear monitor -- as
 hand-written CUDA C++ for Hopper (``csrc/fused_cell.cu``) on CUDA tensors,
-and as their plain PyTorch twins on CPU tensors.
+and as their plain PyTorch twins on CPU tensors. ``python -m
+sph_poiseuille_flow_torch.probe`` times the step sweep by sweep through the
+probes' kernels (``ops/probes.py``).
 """
 
 from .config import (SPHConfig, ConfigError, parse_ini, parse_ini_text,

@@ -16,6 +16,13 @@
 //     by use_rows :549-557) -> FORM_ROWS below.
 //   * _shear_kernel (fused_cell.py:1928-2010): wall-shear partials.
 //     -> sph_shear: per-slot partials, summed outside (torch.sum).
+//   * the sweep-decomposition probes, which launch _step_kernel on a grid
+//     cut to a sweep range (experiments/profile_r3.py:115 call_sweeps,
+//     experiments/profile_fused.py:72 prefix_call) and a no-op body over
+//     the step's buffers (profile_r3.py:170).
+//     -> sph_step_sweeps (sph_step is its whole range) and sph_noop.
+//   * the one-hot lane-tiling body of tests/test_pallas.py:155-172.
+//     -> sph_expand.
 //
 // Layout (the JAX package's own): every field is a halo'd core
 // (nyp+2, K, nx+2) -- cell row, slot rank, cell column with wrapped x-halo
@@ -795,54 +802,109 @@ __global__ void __launch_bounds__(128) shear(SphConst c, ShearBufs b) {
   b.tt[p] = tt;
 }
 
+// ---- the fixed cost of one call over the step's buffers (the TPU probe's
+//      noop_kernel, experiments/profile_r3.py:170-171): vol[0, 0, :] =
+//      x[0, 0, :], nx + 2 floats; every other buffer is left as it is ----
+__global__ void __launch_bounds__(128) noop(SphConst c, StepBufs b) {
+  for (int i = threadIdx.x; i < c.nx + 2; i += blockDim.x) b.vol[i] = b.x[i];
+}
+
+// ---- the one-hot lane tiling of tests/test_pallas.py:155-172: out (rows,
+//      K*bx) = v (rows, bx) @ E with E[c, k*bx + c] = 1, one thread per
+//      output element, E generated in registers. Each sum is one product
+//      v*1 and bx-1 products +-0 in float32 on the CUDA cores (--fmad=false),
+//      so out is exactly v tiled K times. The tensor cores would round the
+//      product under TF32 (10 mantissa bits): this card's counterpart of the
+//      MXU default-precision trap that test documents. ----
+__global__ void __launch_bounds__(256) expand(const float* v, float* out,
+                                             int rows, int bx, int K) {
+  const long long i = blockIdx.x * (long long)blockDim.x + threadIdx.x;
+  const int w = K * bx;
+  if (i >= (long long)rows * w) return;
+  const int r = static_cast<int>(i / w), c = static_cast<int>(i % w) % bx;
+  float acc = 0.0f;
+  for (int j = 0; j < bx; ++j) acc += v[r * bx + j] * (j == c ? 1.0f : 0.0f);
+  out[i] = acc;
+}
+
 inline int blocks_for(int n, int per) { return (n + per - 1) / per; }
 
-template <int FORM>
-void launch_sweeps(const SphConst& c, const StepBufs& b, const CacheBufs& cb,
-                   cudaStream_t st) {
+// one sweep in one form; the rows form's window needs the kernel's opt-in
+// when its dynamic shared memory exceeds 48 KB, set for each launched sweep
+template <int FORM, class FS>
+void launch_sweep(void (*kern)(SphConst, StepBufs, CacheBufs),
+                  const SphConst& c, const StepBufs& b, const CacheBufs& cb,
+                  cudaStream_t st) {
   int nb = blocks_for(c.nyp * c.K * c.nx, 128), nt = 128;
-  size_t per = 0;
+  size_t sm = 0;
   if constexpr (FORM == FORM_ROWS) {
     nb = c.nyp * blocks_for(c.nx, c.tx);
     nt = c.tx * c.K;
-    per = sizeof(float) * 3 * c.K * (c.tx + 2);
+    sm = sizeof(float) * 3 * c.K * (c.tx + 2) * FS::n;
+    if (sm > 48 * 1024)
+      cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                           sm);
   }
-  const size_t s0 = per * Fields0::n, s1 = per * Fields1::n,
-               s2 = per * Fields2::n, s3 = per * Fields3::n;
-  if (FORM == FORM_ROWS && s2 > 48 * 1024) {
-    // above 48 KB a block's dynamic shared memory needs an opt-in
-    cudaFuncSetAttribute(sweep0<FORM>,
-                         cudaFuncAttributeMaxDynamicSharedMemorySize, s0);
-    cudaFuncSetAttribute(sweep1<FORM>,
-                         cudaFuncAttributeMaxDynamicSharedMemorySize, s1);
-    cudaFuncSetAttribute(sweep2<FORM>,
-                         cudaFuncAttributeMaxDynamicSharedMemorySize, s2);
-    cudaFuncSetAttribute(sweep3<FORM>,
-                         cudaFuncAttributeMaxDynamicSharedMemorySize, s3);
+  kern<<<nb, nt, sm, st>>>(c, b, cb);
+}
+
+// sweeps first .. first+count-1 of one step, in stream order
+template <int FORM>
+void launch_sweeps(const SphConst& c, const StepBufs& b, const CacheBufs& cb,
+                   int first, int count, cudaStream_t st) {
+  for (int s = first; s < first + count; ++s) {
+    if (s == 0)
+      launch_sweep<FORM, Fields0>(sweep0<FORM>, c, b, cb, st);
+    else if (s == 1)
+      launch_sweep<FORM, Fields1>(sweep1<FORM>, c, b, cb, st);
+    else if (s == 2)
+      launch_sweep<FORM, Fields2>(sweep2<FORM>, c, b, cb, st);
+    else
+      launch_sweep<FORM, Fields3>(sweep3<FORM>, c, b, cb, st);
   }
-  sweep0<FORM><<<nb, nt, s0, st>>>(c, b, cb);
-  sweep1<FORM><<<nb, nt, s1, st>>>(c, b, cb);
-  sweep2<FORM><<<nb, nt, s2, st>>>(c, b, cb);
-  sweep3<FORM><<<nb, nt, s3, st>>>(c, b, cb);
 }
 
 void sweeps(const SphConst& c, const StepBufs& b, const CacheBufs& cb,
-            int form, cudaStream_t st) {
+            int form, int first, int count, cudaStream_t st) {
   if (form == FORM_CACHE)
-    launch_sweeps<FORM_CACHE>(c, b, cb, st);
+    launch_sweeps<FORM_CACHE>(c, b, cb, first, count, st);
   else if (form == FORM_ROWS)
-    launch_sweeps<FORM_ROWS>(c, b, cb, st);
+    launch_sweeps<FORM_ROWS>(c, b, cb, first, count, st);
   else
-    launch_sweeps<FORM_WIN>(c, b, cb, st);
+    launch_sweeps<FORM_WIN>(c, b, cb, first, count, st);
 }
 
 }  // namespace
 
 extern "C" {
 
+// sweeps first .. first+count-1 (0 <= first, first + count <= 4; the
+// wrapper checks) on the step's buffers: the TPU probes' grid restricted
+// to a sweep range (experiments/profile_r3.py:115-127,
+// experiments/profile_fused.py:72-95)
+int sph_step_sweeps(const SphConst* cp, const StepBufs* bp,
+                    const CacheBufs* cbp, int form, int first, int count,
+                    void* stream) {
+  sweeps(*cp, *bp, *cbp, form, first, count,
+         static_cast<cudaStream_t>(stream));
+  return static_cast<int>(cudaGetLastError());
+}
+
 int sph_step(const SphConst* cp, const StepBufs* bp, const CacheBufs* cbp,
              int form, void* stream) {
-  sweeps(*cp, *bp, *cbp, form, static_cast<cudaStream_t>(stream));
+  return sph_step_sweeps(cp, bp, cbp, form, 0, 4, stream);
+}
+
+int sph_noop(const SphConst* cp, const StepBufs* bp, void* stream) {
+  noop<<<1, 128, 0, static_cast<cudaStream_t>(stream)>>>(*cp, *bp);
+  return static_cast<int>(cudaGetLastError());
+}
+
+int sph_expand(const float* v, float* out, int rows, int bx, int K,
+               void* stream) {
+  const long long n = static_cast<long long>(rows) * K * bx;
+  expand<<<static_cast<int>((n + 255) / 256), 256, 0,
+           static_cast<cudaStream_t>(stream)>>>(v, out, rows, bx, K);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -855,7 +917,7 @@ int sph_chunk(const SphConst* cp, const StepBufs* bp, const CacheBufs* cbp,
   const int nh = blocks_for(n_h, 256);
   for (int i = 0; i < n_sub; ++i) {
     chunk_ctrl<<<1, 1024, 0, st>>>(c, b, n_h, clock, steps);
-    sweeps(c, b, *cbp, form, st);
+    sweeps(c, b, *cbp, form, 0, 4, st);
     refresh<<<nh, 256, 0, st>>>(c, b);
     const cudaError_t e = cudaGetLastError();
     if (e != cudaSuccess) return static_cast<int>(e);

@@ -26,6 +26,9 @@ resolves them): the recompute sweeps ("none"), the geometry cache
 ("full", "ring", "partial" -- ranks below ``k_cut`` cached) and the
 candidate-row-outer loop ("rows"). The plain twins differ between them
 only where the JAX cached expressions associate differently (sweep 1).
+Each plain sweep is a function of its own (``_sweep0_plain`` ..
+``_sweep3_plain``, the cores each writes in ``SWEEP_WRITES``), so that
+``ops/probes.py`` can run a sweep range.
 
 The rebuild glue (slot assignment, packed scatter, takes) and the drift
 guard are plain torch, as they are XLA in the JAX package.
@@ -445,52 +448,72 @@ def _geometry(spec: GridSpec, xa, ya, xv, yv, isfv, need_w=True):
     return r, dx * rs, dy * rs, w, dw, m1, mw
 
 
-def _step_plain(spec: GridSpec, cores, occ, dt, scalars, n_cached: int = 0):
-    """One fused step on cores (the four sweeps of the JAX _kernel_body,
-    fused_cell.py:604-1078). ``cores``: x y vx vy (halo'd), dr (plain),
-    isf mass wvx wvy (halo'd). ``dt``/``g``/``mu``/``wf``: 0-dim tensors.
-    Anchor ranks k < ``n_cached`` take the geometry-cache expressions
-    (:743-762). Returns a dict of output cores with ``cnt`` per slot
-    (nyp, K, nx)."""
-    (rho0, p0, c_f, inv_sigma0, transport_coeff, g, mu, wf) = scalars
-    (xC, yC, vxC, vyC, drP, isfC, massC, wvxC, wvyC) = cores
-    h = spec.h
-    nyp = xC.shape[0] - 2
-    vis = _visited(spec, occ, nyp)
-    zero = torch.zeros((), dtype=xC.dtype, device=xC.device)
+class _Sweep:
+    """What the plain sweeps share: the step's inputs, the masked pair
+    geometry of the anchors against their candidate windows, and the
+    cores each sweep writes for the later ones (the kernel's output and
+    scratch buffers)."""
 
-    def keep(v):     # zero the never-visited anchor ranks
-        return torch.where(vis, v, zero)
+    def __init__(self, spec: GridSpec, cores, occ, dt, scalars,
+                 n_cached: int, o: dict):
+        (self.rho0, self.p0, self.c_f, self.inv_sigma0,
+         self.transport_coeff, self.g, self.mu, self.wf) = scalars
+        (self.xC, self.yC, self.vxC, self.vyC, self.drP, self.isfC,
+         self.massC, self.wvxC, self.wvyC) = cores
+        self.spec, self.dt, self.n_cached, self.o = spec, dt, n_cached, o
+        xC = self.xC
+        self.vis = _visited(spec, occ, xC.shape[0] - 2)
+        self.zero = torch.zeros((), dtype=xC.dtype, device=xC.device)
+        self.af = _anc(self.isfC)
+        self.massa = _anc(self.massC)
+        self.mass_safe = torch.where(self.massa > 0, self.massa, 1.0)
+        self.fl = self.af > 0
+        (self.r, self.ex, self.ey, self.w, self.dw, self.m1,
+         self.mw) = _geometry(spec, _pair(_anc(xC)), _pair(_anc(self.yC)),
+                              _win(spec, xC), _win(spec, self.yC),
+                              _win(spec, self.isfC))
 
-    def halo(v):     # _flush of a halo'd output: wrapped x columns
-        return halo_ify(spec, keep(v))
+    def keep(self, v):   # zero the never-visited anchor ranks
+        return torch.where(self.vis, v, self.zero)
 
-    xv, yv, isfv = _win(spec, xC), _win(spec, yC), _win(spec, isfC)
-    xa, ya = _pair(_anc(xC)), _pair(_anc(yC))
-    af = _anc(isfC)
-    massa = _anc(massC)
-    mass_safe = torch.where(massa > 0, massa, 1.0)
-    fl = af > 0
+    def halo(self, v):   # _flush of a halo'd output: wrapped x columns
+        return halo_ify(self.spec, self.keep(v))
 
-    # ---- sweep 0: density (sph_physics_mex.c:178-234) ----
-    r, ex, ey, w, dw, m1, mw = _geometry(spec, xa, ya, xv, yv, isfv)
-    massv = _win(spec, massC)
-    sig_inner = w0(h) + torch.sum(w * m1, dim=2)
+    def dwv(self):
+        """(dw*Vol_j*m1, dw*Vol_j*mw) of sweeps 2-3."""
+        dwv = self.dw * _win(self.spec, self.o["volH"])
+        return dwv * self.m1, dwv * self.mw
+
+
+def _sweep0_plain(s: _Sweep):
+    """Sweep 0: density (sph_physics_mex.c:178-234)."""
+    spec, o = s.spec, s.o
+    rho0, inv_sigma0 = s.rho0, s.inv_sigma0
+    w, m1, mw, fl = s.w, s.m1, s.mw, s.fl
+    massv = _win(spec, s.massC)
+    sig_inner = w0(spec.h) + torch.sum(w * m1, dim=2)
     sig_contact = torch.sum(w * (massv * (1.0 / rho0)) * mw, dim=2)
     rho = (sig_inner * rho0 * inv_sigma0
-           + sig_contact * rho0 * rho0 * inv_sigma0 / mass_safe)
+           + sig_contact * rho0 * rho0 * inv_sigma0 / s.mass_safe)
     rho = torch.where(rho <= 1e-12, rho0, rho)
     rho = torch.where(fl, rho, rho0)   # walls keep rho0
-    vol = mass_safe / rho
-    rk = rho + 0.5 * dt * drP          # stage-1 half-kick + EOS (c:857-865)
+    vol = s.mass_safe / rho
+    rk = rho + 0.5 * s.dt * s.drP      # stage-1 half-kick + EOS (c:857-865)
     rho_half = torch.where(fl, torch.where(rk < 1e-10, rho0, rk), rho)
-    p_half = torch.where(fl, p0 * (rho_half / rho0 - 1.0), zero)
+    p_half = torch.where(fl, s.p0 * (rho_half / rho0 - 1.0), s.zero)
     # reference pair-count convention (fluid-rooted, store-once)
-    cnt = keep(af * (0.5 * torch.sum(m1, dim=2) + torch.sum(mw, dim=2)))
-    volO, rhoH, pH = halo(vol), halo(rho_half), halo(p_half)
+    o["cnt"] = s.keep(s.af * (0.5 * torch.sum(m1, dim=2)
+                              + torch.sum(mw, dim=2)))
+    o["volH"], o["rhohH"], o["phH"] = (s.halo(vol), s.halo(rho_half),
+                                       s.halo(p_half))
 
-    # ---- sweep 1: kernel gradient correction (c:239-365) ----
-    volv = _win(spec, volO)
+
+def _sweep1_plain(s: _Sweep):
+    """Sweep 1: kernel gradient correction (c:239-365)."""
+    spec, o = s.spec, s.o
+    r, dw, m1, mw, ex, ey, fl = s.r, s.dw, s.m1, s.mw, s.ex, s.ey, s.fl
+    n_cached = s.n_cached
+    volv = _win(spec, o["volH"])
     rf = r * dw * volv * (m1 + mw)
     if n_cached > 0:
         # the cache holds dw*m1 and dw*mw and folds Vol_j into them; sweeps
@@ -525,27 +548,32 @@ def _step_plain(spec: GridSpec, cores, occ, dt, scalars, n_cached: int = 0):
     denom_safe = torch.where(small, 1.0, denom)
     w1 = torch.where(small, 0.0, det_a / denom_safe)
     w2 = torch.where(small, 1.0, det_sqr / denom_safe)
-    b11O = halo(torch.where(fl, w1 * p11 + w2, 1.0))
-    b12O = halo(torch.where(fl, w1 * p12, 0.0))
-    b21O = halo(torch.where(fl, w1 * p21, 0.0))
-    b22O = halo(torch.where(fl, w1 * p22 + w2, 1.0))
+    o["b11H"] = s.halo(torch.where(fl, w1 * p11 + w2, 1.0))
+    o["b12H"] = s.halo(torch.where(fl, w1 * p12, 0.0))
+    o["b21H"] = s.halo(torch.where(fl, w1 * p21, 0.0))
+    o["b22H"] = s.halo(torch.where(fl, w1 * p22 + w2, 1.0))
 
-    # ---- sweep 2: viscous + shifting + Riemann pressure + kick
-    #      (c:466-545, :633-709, :867-957, :1388-1409) ----
-    volv = _win(spec, volO)
-    dwv = dw * volv
-    dwv1 = dwv * m1
-    dwvw = dwv * mw
-    vola = _anc(volO)
+
+def _sweep2_plain(s: _Sweep):
+    """Sweep 2: viscous + shifting + Riemann pressure + kick (c:466-545,
+    :633-709, :867-957, :1388-1409)."""
+    spec, o = s.spec, s.o
+    h, g, mu, wf, dt, zero = spec.h, s.g, s.mu, s.wf, s.dt, s.zero
+    c_f, transport_coeff = s.c_f, s.transport_coeff
+    r, ex, ey, fl, af = s.r, s.ex, s.ey, s.fl, s.af
+    massa, mass_safe = s.massa, s.mass_safe
+    vxC, vyC = s.vxC, s.vyC
+    dwv1, dwvw = s.dwv()
+    vola = _anc(o["volH"])
     vxa, vxv = _pair(_anc(vxC)), _win(spec, vxC)
     vya, vyv = _pair(_anc(vyC)), _win(spec, vyC)
-    b11a, b11v = _pair(_anc(b11O)), _win(spec, b11O)
-    b12a, b12v = _pair(_anc(b12O)), _win(spec, b12O)
-    b21a, b21v = _pair(_anc(b21O)), _win(spec, b21O)
-    b22a, b22v = _pair(_anc(b22O)), _win(spec, b22O)
-    rhoha, rhohv = _pair(_anc(rhoH)), _win(spec, rhoH)
-    pha, phv = _pair(_anc(pH)), _win(spec, pH)
-    wvxv, wvyv = _win(spec, wvxC), _win(spec, wvyC)
+    b11a, b11v = _pair(_anc(o["b11H"])), _win(spec, o["b11H"])
+    b12a, b12v = _pair(_anc(o["b12H"])), _win(spec, o["b12H"])
+    b21a, b21v = _pair(_anc(o["b21H"])), _win(spec, o["b21H"])
+    b22a, b22v = _pair(_anc(o["b22H"])), _win(spec, o["b22H"])
+    rhoha, rhohv = _pair(_anc(o["rhohH"])), _win(spec, o["rhohH"])
+    pha, phv = _pair(_anc(o["phH"])), _win(spec, o["phH"])
+    wvxv, wvyv = _win(spec, s.wvxC), _win(spec, s.wvyC)
     inv_denom = 1.0 / (r + 0.01 * h)
     tx_f = (b11a + b11v) * ex + (b12a + b12v) * ey
     ty_f = (b21a + b21v) * ex + (b22a + b22v) * ey
@@ -584,32 +612,89 @@ def _step_plain(spec: GridSpec, cores, occ, dt, scalars, n_cached: int = 0):
     inv_m = 1.0 / mass_safe
     vx2 = torch.where(fl, _anc(vxC) + (fpx + fx) * inv_m * dt, zero)
     vy2 = torch.where(fl, _anc(vyC) + (fpy + fy) * inv_m * dt, zero)
-    vx2O, vy2O = halo(vx2), halo(vy2)
-    dxs, dys = keep(shift * inc_x), keep(shift * inc_y)
+    o["vxH"], o["vyH"] = s.halo(vx2), s.halo(vy2)
+    o["dxsP"], o["dysP"] = s.keep(shift * inc_x), s.keep(shift * inc_y)
+    o["fxP"], o["fyP"] = s.keep(fx), s.keep(fy)
+    o["fpxP"], o["fpyP"] = s.keep(fpx), s.keep(fpy)
 
-    # ---- sweep 3: continuity + finalize + positions (c:1073-1116,
-    #      :1429-1451; SPH_Poiseuille.m:254-283 ordering) ----
+
+def _sweep3_plain(s: _Sweep):
+    """Sweep 3: continuity + finalize + positions (c:1073-1116,
+    :1429-1451; SPH_Poiseuille.m:254-283 ordering)."""
+    spec, o = s.spec, s.o
+    rho0, dt, zero, ex, ey, fl = s.rho0, s.dt, s.zero, s.ex, s.ey, s.fl
+    dwv1, dwvw = s.dwv()
+    wvxv, wvyv = _win(spec, s.wvxC), _win(spec, s.wvyC)
+    vx2O, vy2O = o["vxH"], o["vyH"]
     vx2a, vx2v = _pair(_anc(vx2O)), _win(spec, vx2O)
     vy2a, vy2v = _pair(_anc(vy2O)), _win(spec, vy2O)
     u_jump_f = (vx2a - vx2v) * ex + (vy2a - vy2v) * ey
     u_jump_w = 2.0 * ((vx2a - wvxv) * ex + (vy2a - wvyv) * ey)
     rate = torch.sum(u_jump_f * dwv1 + u_jump_w * dwvw, dim=2)
-    rho_h = _anc(rhoH)
+    rho_h = _anc(o["rhohH"])
     drho_new = torch.where(fl, rate * rho_h, zero)
     rho_new = rho_h + 0.5 * dt * drho_new
     rho_new = torch.where(rho_new < 1e-10, rho0, rho_new)
     rho_new = torch.where(fl, rho_new, rho_h)
-    p_new = torch.where(fl, p0 * (rho_new / rho0 - 1.0), zero)
-    xc, yc = _anc(xC), _anc(yC)
-    x2 = xc + dxs + 0.5 * dt * (_anc(vxC) + _anc(vx2O))
-    y2 = yc + dys + 0.5 * dt * (_anc(vyC) + _anc(vy2O))
-    x2 = torch.where(vis & fl, x2, xc)   # walls, empty and skipped slots
-    y2 = torch.where(vis & fl, y2, yc)   # keep their positions
+    p_new = torch.where(fl, s.p0 * (rho_new / rho0 - 1.0), zero)
+    xc, yc = _anc(s.xC), _anc(s.yC)
+    x2 = xc + o["dxsP"] + 0.5 * dt * (_anc(s.vxC) + _anc(vx2O))
+    y2 = yc + o["dysP"] + 0.5 * dt * (_anc(s.vyC) + _anc(vy2O))
+    o["xP"] = torch.where(s.vis & fl, x2, xc)  # walls, empty and skipped
+    o["yP"] = torch.where(s.vis & fl, y2, yc)  # slots keep their positions
+    o["rhoP"], o["pP"], o["drP"] = (s.keep(rho_new), s.keep(p_new),
+                                    s.keep(drho_new))
 
-    return dict(volH=volO, b11H=b11O, b12H=b12O, b21H=b21O, b22H=b22O,
-                vxH=vx2O, vyH=vy2O, rhoP=keep(rho_new), pP=keep(p_new),
-                drP=keep(drho_new), fxP=keep(fx), fyP=keep(fy),
-                fpxP=keep(fpx), fpyP=keep(fpy), xP=x2, yP=y2, cnt=cnt)
+
+_SWEEPS = (_sweep0_plain, _sweep1_plain, _sweep2_plain, _sweep3_plain)
+
+# The cores each sweep writes: its outputs (the _flush calls under
+# @_when(sweep == s) of the JAX _kernel_body, fused_cell.py:717,
+# :813-816, :958-963, :1074-1078) and the scratch cores it leaves for the
+# later sweeps (rho and p at the half step, the shift).
+SWEEP_WRITES = (("volH", "cnt", "rhohH", "phH"),
+                ("b11H", "b12H", "b21H", "b22H"),
+                ("vxH", "vyH", "fxP", "fyP", "fpxP", "fpyP", "dxsP", "dysP"),
+                ("rhoP", "pP", "drP", "xP", "yP"))
+SCRATCH = ("rhohH", "phH", "dxsP", "dysP")
+
+
+def _sweeps_plain(spec: GridSpec, cores, occ, dt, scalars, n_cached: int,
+                  first: int, count: int, prior=None):
+    """Sweeps ``first .. first+count-1`` of one fused step. The cores the
+    range does not write come from ``prior`` (the buffers of an earlier
+    step) or are zero, as the kernel's zeroed buffers hold them, and the
+    range reads them. ``cnt`` is per slot (nyp, K, nx) where the range
+    writes it."""
+    o = {} if prior is None else dict(prior)
+    for i, ks in enumerate(SWEEP_WRITES):
+        for k in ks:
+            if k not in o and not first <= i < first + count:
+                o[k] = zero_core(spec, k, cores[0], cores[4])
+    s = _Sweep(spec, cores, occ, dt, scalars, n_cached, o)
+    for i in range(first, first + count):
+        _SWEEPS[i](s)
+    return o
+
+
+def zero_core(spec: GridSpec, key: str, xH, drP):
+    """A zero output core named ``key``: halo'd (suffix H) like ``xH``,
+    plain (suffix P) like ``drP``, or the (n_groups, L) pair count."""
+    R, L, n_groups, nyp = plan(spec)
+    return torch.zeros((n_groups, L) if key == "cnt"
+                       else (xH if key.endswith("H") else drP).shape,
+                       dtype=xH.dtype, device=xH.device)
+
+
+def _step_plain(spec: GridSpec, cores, occ, dt, scalars, n_cached: int = 0):
+    """One fused step on cores (the four sweeps of the JAX _kernel_body,
+    fused_cell.py:604-1078). ``cores``: x y vx vy (halo'd), dr (plain),
+    isf mass wvx wvy (halo'd). ``dt``/``g``/``mu``/``wf``: 0-dim tensors.
+    Anchor ranks k < ``n_cached`` take the geometry-cache expressions
+    (:743-762). Returns a dict of output cores with ``cnt`` per slot
+    (nyp, K, nx)."""
+    o = _sweeps_plain(spec, cores, occ, dt, scalars, n_cached, 0, 4)
+    return {k: v for k, v in o.items() if k not in SCRATCH}
 
 
 def _scalar(v, like: torch.Tensor) -> torch.Tensor:

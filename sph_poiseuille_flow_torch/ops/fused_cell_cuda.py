@@ -1,7 +1,9 @@
 """Build, binding and launch wrappers of the hand-written CUDA kernels in
 ``csrc/fused_cell.cu`` (the Hopper port of the JAX package's Pallas
 kernels: the fused step and the multi-step chunk, each in its recompute,
-geometry-cache and row-outer forms, and the wall-shear monitor).
+geometry-cache and row-outer forms, and the wall-shear monitor; and the
+probes' kernels: the step cut to a sweep range, the no-op over the step's
+buffers and the one-hot lane tiling).
 
 The source is compiled with ``nvcc`` for ``sm_90a`` into a shared library
 with a plain C interface at first use (into ``build/`` beside the package,
@@ -37,10 +39,13 @@ NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 # launch counts of the kernel entry points, per form (one per wrapper
 # call): "fused_step"/"fused_chunk" are the recompute form ("none"),
 # "*_cache" the geometry cache ("full", "ring", "partial"), "*_rows" the
-# candidate-row-outer loop ("rows")
+# candidate-row-outer loop ("rows"); "fused_step_sweeps*" a sweep range of
+# the step (``StepBuffers.sweeps``)
 LAUNCHES = {"fused_step": 0, "fused_step_cache": 0, "fused_step_rows": 0,
             "fused_chunk": 0, "fused_chunk_cache": 0, "fused_chunk_rows": 0,
-            "fused_wall_shear": 0}
+            "fused_wall_shear": 0, "fused_step_sweeps": 0,
+            "fused_step_sweeps_cache": 0, "fused_step_sweeps_rows": 0,
+            "fused_noop": 0, "expand_onehot": 0}
 
 # form name -> (kernel form of csrc/fused_cell.cu, LAUNCHES suffix)
 _FORMS = {"none": (0, ""), "full": (1, "_cache"), "ring": (1, "_cache"),
@@ -130,9 +135,13 @@ def _load():
         lib = ctypes.CDLL(build())
         vp, ip = ctypes.c_void_p, ctypes.c_int
         lib.sph_step.argtypes = [vp, vp, vp, ip, vp]
+        lib.sph_step_sweeps.argtypes = [vp, vp, vp, ip, ip, ip, vp]
         lib.sph_chunk.argtypes = [vp, vp, vp, ip, vp, vp, ip, vp]
         lib.sph_shear.argtypes = [vp, vp, vp]
-        for fn in (lib.sph_step, lib.sph_chunk, lib.sph_shear):
+        lib.sph_noop.argtypes = [vp, vp, vp]
+        lib.sph_expand.argtypes = [vp, vp, ip, ip, ip, vp]
+        for fn in (lib.sph_step, lib.sph_step_sweeps, lib.sph_chunk,
+                   lib.sph_shear, lib.sph_noop, lib.sph_expand):
             fn.restype = ip
         _lib = lib
     return _lib
@@ -211,13 +220,17 @@ def _step_bufs(spec, R, lay, xH, yH, vxH, vyH, drP, dyn):
     return bufs, out
 
 
-def _outputs(out):
-    return dict(volH=out["vol"], b11H=out["b11"], b12H=out["b12"],
-                b21H=out["b21"], b22H=out["b22"], vxH=out["vx2"],
-                vyH=out["vy2"], rhoP=out["rho"], pP=out["p"],
-                drP=out["drho"], fxP=out["fx"], fyP=out["fy"],
-                fpxP=out["fpx"], fpyP=out["fpy"], xP=out["x2"],
-                yP=out["y2"], cnt=out["cnt"])
+def _outputs(out, scratch: bool = False):
+    o = dict(volH=out["vol"], b11H=out["b11"], b12H=out["b12"],
+             b21H=out["b21"], b22H=out["b22"], vxH=out["vx2"],
+             vyH=out["vy2"], rhoP=out["rho"], pP=out["p"],
+             drP=out["drho"], fxP=out["fx"], fyP=out["fy"],
+             fpxP=out["fpx"], fpyP=out["fpy"], xP=out["x2"],
+             yP=out["y2"], cnt=out["cnt"])
+    if scratch:
+        o.update(rhohH=out["rhoH"], phH=out["pH"], dxsP=out["dxs"],
+                 dysP=out["dys"])
+    return o
 
 
 def _dyn(dt, g, mu, wf, dev):
@@ -268,11 +281,15 @@ def _cache_bufs(spec, R: int, kcut: int, dev):
     return _CacheBufs(*(t.data_ptr() for t in keep)), keep
 
 
-def step(spec, R: int, lay, xH, yH, vxH, vyH, drP, dt, scalars,
-         form: str = "none", k_cut: int = 0):
-    """One fused step (the JAX _step_kernel) in ``form``: four sweep
-    launches. Returns the output cores with ``cnt`` per slot
-    (nyp, K, nx)."""
+def _step_setup(spec, R: int, lay, xH, yH, vxH, vyH, drP, dt, scalars,
+                form: str, k_cut: int):
+    """What a step call sets up before its launches: the form, the
+    library, the [dt, g, mu, wf, active] copy, the checked inputs with
+    zeroed outputs and scratch, the cache and the constants. Returns
+    (lib, kernel form, constants, buffer struct, output tensors, the
+    [dt, g, mu, wf, active] tensor, cache struct, tensors backing the
+    cache): the launches read the tensors through the structs, so the
+    caller keeps them alive until they are enqueued."""
     (rho0, p0, c_f, inv_sigma0, transport_coeff, g, mu, wf) = scalars
     kform, kcut = _form(form, k_cut, spec.K)
     lib = _load()
@@ -281,13 +298,145 @@ def step(spec, R: int, lay, xH, yH, vxH, vyH, drP, dt, scalars,
     bufs, out = _step_bufs(spec, R, lay, xH, yH, vxH, vyH, drP, dyn)
     cache, keep = _cache_bufs(spec, R, kcut, dev)
     c = _const(spec, R, rho0, p0, c_f, inv_sigma0, transport_coeff, kcut)
+    return lib, kform, c, bufs, out, dyn, cache, keep
+
+
+def step(spec, R: int, lay, xH, yH, vxH, vyH, drP, dt, scalars,
+         form: str = "none", k_cut: int = 0):
+    """One fused step (the JAX _step_kernel) in ``form``: four sweep
+    launches. Returns the output cores with ``cnt`` per slot
+    (nyp, K, nx)."""
+    lib, kform, c, bufs, out, dyn, cache, keep = _step_setup(
+        spec, R, lay, xH, yH, vxH, vyH, drP, dt, scalars, form, k_cut)
+    dev = xH.device
     with torch.cuda.device(dev):
         _raise_on(lib.sph_step(ctypes.addressof(c), ctypes.addressof(bufs),
                                ctypes.addressof(cache), kform, _stream(dev)),
                   "sph_step")
-    del keep  # a later allocation on this stream runs after the launches
+    del dyn, keep  # a later allocation on this stream runs after them
     LAUNCHES[launch_key("fused_step", form)] += 1
     return _outputs(out)
+
+
+class StepBuffers:
+    """The buffers of one fused step in ``form``, set up once as ``step``
+    sets them up (checked inputs, zeroed outputs and scratch, the cache),
+    on which sweep ranges and the no-op launch again and again: the probes
+    time each sweep and each prefix over a completed step's buffers.
+
+    Sweeps 1-3 read what the earlier sweeps left in the buffers, so a
+    sweep relaunched over a completed step writes what the step wrote, bit
+    for bit, with one exception: in the cache form sweep 1 folds Vol_j into
+    the list in place (csrc/fused_cell.cu ``kgc_each``), so it writes what
+    it reads. ``rewrites`` names such sweeps; take a ``snapshot`` of the
+    list after sweep 0 and ``restore`` it before each relaunch of sweep 1.
+    A cache-form range that would read the list in the wrong state raises:
+    sweep 1 needs the list as sweep 0 wrote it, sweeps 2-3 as sweep 1
+    folded it."""
+
+    def __init__(self, spec, R: int, lay, xH, yH, vxH, vyH, drP, dt,
+                 scalars, form: str = "none", k_cut: int = 0):
+        (self._lib, self._kform, self._c, self._bufs, self._out,
+         self._dyn, self._cache, self._keep) = _step_setup(
+            spec, R, lay, xH, yH, vxH, vyH, drP, dt, scalars, form, k_cut)
+        # every tensor the structs point to lives as long as the buffers
+        self._inputs = (xH, yH, vxH, vyH, drP, lay)
+        self.dev = xH.device
+        self.key = launch_key("fused_step_sweeps", form)
+        self.rewrites = (1,) if self._kform == 1 else ()
+        self._listed = self._folded = False   # sweep 0 / 1 left the list
+        self._saved = None
+
+    def _call(self, what: str, fn, *args):
+        with torch.cuda.device(self.dev):
+            _raise_on(fn(ctypes.addressof(self._c),
+                         ctypes.addressof(self._bufs), *args,
+                         _stream(self.dev)), what)
+
+    def sweeps(self, first: int = 0, count: int = 4) -> None:
+        """Launch sweeps ``first .. first+count-1`` (sph_step_sweeps)."""
+        check_sweep_range(first, count)
+        if self.rewrites and first > 0:
+            if not self._listed:
+                raise ValueError("the cache form's sweeps 1-3 read the "
+                                 "list that sweep 0 writes: launch sweep 0 "
+                                 "on these buffers first")
+            if first == 1 and self._folded:
+                raise RuntimeError("cache-form sweep 1 folds Vol_j into the "
+                                   "list in place: restore() the list "
+                                   "before launching it again")
+            if first > 1 and not self._folded:
+                raise RuntimeError("cache-form sweeps 2-3 read the list "
+                                   "that sweep 1 folds: launch sweep 1 "
+                                   "first")
+        self._call("sph_step_sweeps", self._lib.sph_step_sweeps,
+                   ctypes.addressof(self._cache), self._kform, first, count)
+        LAUNCHES[self.key] += 1
+        if self.rewrites:
+            if first == 0:
+                self._listed, self._folded = True, False
+            if first <= 1 < first + count:
+                self._folded = True
+
+    def snapshot(self) -> int:
+        """Keep the list as sweep 0 wrote it (cache form): the entries in
+        use of c1 and cw. Entry e of cached slot s sits at e*ncs + s, so
+        the first max(n)*ncs entries hold every slot's n[s]; the rest of
+        the 9K capacity stays out of the copy (and out of L2). Sweep 0
+        writes n only for visited slots (rank k < occ of the row's group),
+        so the max is taken over those. Returns the bytes that each
+        ``restore`` copies."""
+        if not self._listed or self._folded:
+            raise RuntimeError("snapshot() takes the list between sweep 0 "
+                               "and sweep 1")
+        c = self._c
+        n = self._keep[6].view(c.nyp, c.kcut, c.nx)
+        occ = self._inputs[5].occ.reshape(-1).repeat_interleave(c.R)
+        vis = torch.arange(c.kcut, device=self.dev)[None, :] < occ[:, None]
+        used = int(torch.where(vis[:, :, None], n, 0).max()) * n.numel()
+        self._saved = [t[:used].clone() for t in self._keep[4:6]]  # c1, cw
+        return 2 * used * 4
+
+    def restore(self) -> None:
+        """Put back the list of the last ``snapshot`` (cache form)."""
+        if self._saved is None:
+            raise RuntimeError("restore() needs a snapshot()")
+        for t, v in zip(self._keep[4:6], self._saved):
+            t[:v.numel()].copy_(v)
+        self._folded = False
+
+    def noop(self) -> None:
+        """Launch the no-op on these buffers (sph_noop): it overwrites
+        vol's first halo row with x's."""
+        self._call("sph_noop", self._lib.sph_noop)
+        LAUNCHES["fused_noop"] += 1
+
+    def outputs(self) -> dict:
+        """The output and scratch cores (the buffers themselves, not
+        copies), ``cnt`` per slot (nyp, K, nx)."""
+        return _outputs(self._out, scratch=True)
+
+
+def check_sweep_range(first: int, count: int) -> None:
+    if not (0 <= first and count >= 1 and first + count <= 4):
+        raise ValueError(f"sweep range {first} .. {first + count - 1} is "
+                         "not inside 0 .. 3")
+
+
+def expand(v: torch.Tensor, K: int) -> torch.Tensor:
+    """(rows, bx) -> (rows, K*bx): ``v`` times the one-hot lane-tiling
+    matrix (sph_expand), which is ``v`` tiled K times along columns."""
+    if v.dim() != 2:
+        raise ValueError(f"v: expected a 2-D tensor, got {v.dim()}-D")
+    _check(v, v.shape, "v", v.device)
+    rows, bx = v.shape
+    out = torch.empty((rows, K * bx), dtype=torch.float32, device=v.device)
+    lib = _load()
+    with torch.cuda.device(v.device):
+        _raise_on(lib.sph_expand(v.data_ptr(), out.data_ptr(), rows, bx,
+                                 int(K), _stream(v.device)), "sph_expand")
+    LAUNCHES["expand_onehot"] += 1
+    return out
 
 
 def chunk(spec, R: int, lay, xH, yH, vxH, vyH, drP, t_local, t_comp,
