@@ -24,8 +24,7 @@ Phases, each of which exits non-zero on failure before the last line:
    of the step (``probes.fused_step_sweeps``) equals the kernel's full step
    bit for bit on the cores it writes, leaves the others zero and holds
    its plain prefix; each sweep relaunched over a completed step's buffers
-   (``StepBuffers``) leaves every core bit-equal (the cache form's sweep 1,
-   which folds Vol_j into its list in place, after a restore of the list);
+   (``StepBuffers``) leaves every core bit-equal;
    the no-op writes x's first halo row into vol's and nothing else; the
    one-hot expand equals ``repeat`` bit for bit at the JAX test's shape and
    at (b)'s window. Then the probe entry point (``python -m
@@ -34,6 +33,12 @@ Phases, each of which exits non-zero on failure before the last line:
    before each run and its kernels nonzero after it; its JSON gives the
    sweeps', the no-op's and the expand's times, plain times and bounds in
    the kernels line;
+2c. the geometry-cache form at both grids: the list its sweep 0 writes
+   (cache and partial) against the plain list (``fused_cell.
+   cache_list_plain``: n and idx exactly, ex, ey, r, dw*m1, dw*mw to
+   TOL_STEP); two chunk launches on the same inputs bit-equal; and the
+   v_max the chunk carries from each step to the next equal to the max of
+   vx^2 + vy^2 over the working velocity cores after that step, exactly;
 3. drive the main path through the CLI (``run.main``): (a) ``config.ini``
    as shipped (20 s, "auto", so the geometry cache), which must pass its
    5% L2 gate; (b) the dp=0.01 channel with the shipping knobs for a few
@@ -45,7 +50,10 @@ Phases, each of which exits non-zero on failure before the last line:
    printed. The launch counts are reset to 0 before each run and each
    kernel of the form the run selects must be nonzero after it;
 4. time each kernel and form against its plain version with CUDA events
-   at the (b) shapes and at dp=0.025.
+   at the (b) shapes and at dp=0.025, and the cache chunk at each lane
+   group size of its sweep 0 and of its sweeps 1-3
+   (``fused_cell_cuda.CACHE_GROUPS0``, ``CACHE_GROUPS``; the shipped pick
+   is ``fused_cell_cuda.cache_groups``), with the sweeps each size runs.
 
 Prints the card's name and power limit, a ``{"kernels": [...]}`` line
 (each kernel with its time, its plain version's and the least time the
@@ -357,8 +365,8 @@ def phase_probes(device, check: Check, label: str, k: dict) -> None:
     """The probes' kernels at one grid, in every form: the sweep prefixes
     against the kernel's full step (bit for bit on the cores they write,
     zero elsewhere) and against the plain prefixes, each single sweep
-    relaunched over a completed step's buffers (bit-equal; the cache
-    form's sweep 1 restored first), the no-op; at (b) also the expand.
+    relaunched over a completed step's buffers (bit-equal), the no-op; at
+    (b) also the expand.
     Their times come from the probe runs (``phase_probe_cli``)."""
     import torch
     from sph_poiseuille_flow_torch.ops import fused_cell as fc
@@ -396,24 +404,12 @@ def phase_probes(device, check: Check, label: str, k: dict) -> None:
 
         # each sweep again over the completed step's buffers
         b = fcc.StepBuffers(fspec, R, lay, *args, dt, sc, *form)
-        b.sweeps(0, 1)
-        if b.rewrites:
-            b.snapshot()
-        b.sweeps(1, 3)
+        b.sweeps(0, 4)
         torch.cuda.synchronize()
         done = {c: v.clone() for c, v in b.outputs().items()}
         _equal(f"{key} ({tag}) buffers vs the step",
                dict(done, cnt=fc._cnt_rows(fspec, done["cnt"])), full, full)
-        if b.rewrites:
-            try:
-                b.sweeps(1, 1)
-                raise AssertionError(f"{key}: a second sweep 1 on a folded "
-                                     "list did not raise")
-            except RuntimeError:
-                pass
         for s in range(4):
-            if s in b.rewrites:
-                b.restore()
             b.sweeps(s, 1)
             torch.cuda.synchronize()
             _equal(f"{key} ({tag}) sweep {s} relaunched", b.outputs(), done,
@@ -431,10 +427,81 @@ def phase_probes(device, check: Check, label: str, k: dict) -> None:
         check.max_abs["fused_noop"] = 0.0
         _say(f"probes ({tag}) {key}: prefixes 1-4 bit-equal to the step on "
              f"their cores and zero elsewhere, vs plain max rel "
-             f"{worst:.2e}; sweeps 0-3 relaunched bit-equal"
-             f"{' (sweep 1 restored)' if b.rewrites else ''}; no-op exact")
+             f"{worst:.2e}; sweeps 0-3 relaunched bit-equal; no-op exact")
     if label == "b":
         phase_expand(device, check, spec)
+
+
+def phase_cache(device, check: Check, label: str, k: dict) -> None:
+    """The geometry-cache form at one grid: the list sweep 0 writes, in
+    the cache and the partial form, against the plain list (n and idx
+    exactly, the floats to TOL_STEP); the grid's last chunk case launched
+    twice on the same inputs, bit-equal; and that chunk cut after m = 0,
+    1, .. n_sub steps, whose v_max^2 (the value the next step's control
+    reads) must equal the max of vx^2 + vy^2 over the working velocity
+    cores it returns, exactly."""
+    import torch
+    from sph_poiseuille_flow_torch.ops import fused_cell as fc
+    from sph_poiseuille_flow_torch.ops import fused_cell_cuda as fcc
+
+    cfg, spec, lay, args, sc, dt = (k[n] for n in ("cfg", "spec", "lay",
+                                                   "args", "sc", "dt"))
+    R = fc.plan(spec)[0]
+    for flabel, knobs in FORMS[1:3]:
+        fspec = _form_spec(spec, knobs)
+        form = fc.step_form(fspec, torch.float32)
+        b = fcc.StepBuffers(fspec, R, lay, *args, dt, sc, *form)
+        b.sweeps(0, 1)
+        got = b.cache_list()
+        ref = fc.cache_list_plain(fspec, lay, args[0], args[1], form[1])
+        torch.cuda.synchronize()
+        tag = f"{label}/{flabel}/list"
+        if not torch.equal(got["n"], ref["n"]):
+            bad = int((got["n"] != ref["n"]).sum())
+            raise AssertionError(f"{tag}: n differs in {bad} slots")
+        used = (torch.arange(ref["idx"].shape[1], device=device)[None, :]
+                < ref["n"][:, None])
+        if not torch.equal(torch.where(used, got["idx"], -1), ref["idx"]):
+            raise AssertionError(f"{tag}: idx differs from the plain list")
+        for name in ("ex", "ey", "r", "c1", "cw"):
+            check.core("fused_step_cache", f"{tag}:{name}",
+                       torch.where(used, got[name], 0.0), ref[name],
+                       TOL_STEP)
+        _say(f"cache list ({tag}) {form}: n and idx exact over "
+             f"{ref['n'].numel()} cached slots, {int(ref['n'].sum())} "
+             f"pairs, max n {int(ref['n'].max())}")
+
+    form = fc.chunk_form(spec, torch.float32)
+    host = torch.empty(())
+    dt_visc, dt_body = fc.chunk_dt_limits(spec, cfg.rho0, float(cfg.gravity_g),
+                                          float(cfg.mu), host)
+    n_sub, interval, _ = CHUNKS[label][-1]
+
+    def chunk(m):
+        o = fcc.chunk(spec, R, lay, *args, 0.0, 0.0, interval, m, dt_visc,
+                      dt_body, sc, *form)
+        torch.cuda.synchronize()
+        return o
+
+    one, two = chunk(n_sub), chunk(n_sub)
+    for (i, a), b in zip(enumerate(one), two):
+        pairs = (zip(a, b) if i == 0 else
+                 ((a[n], b[n]) for n in a) if i == 1 else ((a, b),))
+        if not all(torch.equal(x, y) for x, y in pairs):
+            raise AssertionError(f"fused_chunk_cache ({label}): two launches"
+                                 f" on the same inputs differ (part {i})")
+    steps = int(one[2])
+    for m in range(n_sub + 1):
+        st, _, _, _, _, vmax2 = chunk(m)
+        vx, vy = st[2], st[3]
+        want = torch.max(vx * vx + vy * vy)
+        if not torch.equal(vmax2, want):
+            raise AssertionError(f"fused_chunk_cache ({label}) after {m} "
+                                 f"steps: v_max^2 {float(vmax2)!r}, the "
+                                 f"cores' max {float(want)!r}")
+    _say(f"cache chunk ({label}) {form}: two launches bit-equal ({steps} "
+         f"of n_sub={n_sub} steps); v_max^2 exact after each of 0..{n_sub} "
+         f"steps, last {float(vmax2):.9e}")
 
 
 def phase_expand(device, check: Check, spec) -> None:
@@ -518,16 +585,14 @@ def phase_probe_cli() -> tuple:
 def _probe_times(results: dict) -> dict:
     """{kernels-line name: (ms, plain_ms, bound_ms, bound_by, library_ms)}
     from the probe runs' JSON: each sweep from the run of its form (device
-    time on persistent buffers; for the cache form's sweep 1, which must
-    be restored before each relaunch, its prefix marginal inside the
-    step), the no-op (on buffers) and the expand from the default form's
-    run."""
+    time relaunched on persistent buffers), the no-op (on buffers) and the
+    expand from the default form's run."""
     out = {}
     for name, _, key in PROBE_RUNS:
         r = results[name]
         for s in range(4):
             out[f"{key}:sweep{s}"] = (
-                r["ms"].get(f"sweep{s}_in_step", r["ms"][f"sweep{s}"]),
+                r["ms"][f"sweep{s}"],
                 r["ms"][f"plain_sweep{s}"], r["bound_ms"][f"sweep{s}"],
                 r["bound_by"][f"sweep{s}"], None)
     r = results[PROBE_RUNS[0][0]]
@@ -719,6 +784,7 @@ def phase_timing(device, kern_b: dict) -> dict:
     from sph_poiseuille_flow_torch.ops import fused_cell as fc
     from sph_poiseuille_flow_torch.ops import fused_cell_cuda as fcc
     from sph_poiseuille_flow_torch.ops.integration import verlet_dt
+    from sph_poiseuille_flow_torch.probe import event_ms
     from sph_poiseuille_flow_torch.utils import roofline
 
     cfg25 = derive_config(**DP0025)
@@ -776,6 +842,33 @@ def phase_timing(device, kern_b: dict) -> dict:
                 key = (grid, name if flabel != "partial"
                        else name + "[partial]")
                 out[key] = (min(k1, k2), min(p1, p2)) + bound
+        # the cache form ("auto" here) at each lane group size of sweep 0
+        # and of sweeps 1-3, the other as cache_groups picks it: the chunk
+        # and the sweeps each size drives, on persistent buffers
+        picked = fcc.cache_groups(fc.plan(spec)[3] * spec.K * spec.nx)
+        form = fc.step_form(spec, torch.float32)
+        R = fc.plan(spec)[0]
+        pick = fcc.cache_groups
+        lines = []
+        try:
+            for which, groups, sweeps in (("G0", fcc.CACHE_GROUPS0, (0,)),
+                                          ("G", fcc.CACHE_GROUPS, (1, 2, 3))):
+                for G in groups:
+                    pair = (G, picked[1]) if which == "G0" else (picked[0], G)
+                    fcc.cache_groups = lambda n, pair=pair: pair
+                    t = min(_time(lambda: fc.fused_chunk_call(
+                        spec, lay, *args, 0.0, 0.0, 1.0, 16, *sc), 5)
+                        for _ in range(2))
+                    b = fcc.StepBuffers(spec, R, lay, *args, dt, sc, *form)
+                    b.sweeps(0, 4)
+                    sw = [event_ms(lambda s=s: b.sweeps(s, 1), 50,
+                                   queued=True) for s in sweeps]
+                    lines.append(f"{which}={G}: chunk {t:.4f}, sweep(s) "
+                                 + " / ".join(f"{v:.4f}" for v in sw))
+        finally:
+            fcc.cache_groups = pick
+        _say(f"timing ({grid}) fused_*_cache by lanes per anchor, ms "
+             f"(picked G0={picked[0]}, G={picked[1]}): " + "; ".join(lines))
     k = kern_b
     sh = k["sh"]
     p1 = _time(lambda: fc.fused_wall_shear_cores_plain(k["spec"], k["lay"],
@@ -853,6 +946,7 @@ def main() -> int:
         t1 = time.perf_counter()
         for label in kern:
             phase_probes(device, check, label, kern[label])
+            phase_cache(device, check, label, kern[label])
         probe_counts, probe_res = phase_probe_cli()
         probe_times = _probe_times(probe_res)
         _say(f"probe phase done in {time.perf_counter() - t1:.1f} s")

@@ -7,9 +7,11 @@
 //     -> sph_step: one launch per sweep (sweep0..sweep3 below).
 //   * _chunk_kernel (fused_cell.py:1550-1701, called through
 //     fused_chunk_call :1704-1783): up to n_sub whole steps per call.
-//     -> sph_chunk: per step a one-block control kernel (v_max, dt, the
-//        active flag and the Kahan clock, on device), the four sweeps and a
-//        halo refresh; the host enqueues exactly n_sub steps with no sync.
+//     -> sph_chunk: a v_max reduction over the input cores, then per step
+//        a one-thread control kernel (dt, the active flag and the Kahan
+//        clock, on device), the four sweeps and a halo refresh that takes
+//        the next step's v_max; the host enqueues exactly n_sub steps with
+//        no sync.
 //   * the geometry cache of both (cache_plan :422-458; written :663-674,
 //     read :743-762, :845-861, :1005-1022) -> FORM_CACHE below.
 //   * _kernel_body_rows, the candidate-row-outer loop (:1081-1468, picked
@@ -37,28 +39,47 @@
 //     ix fastest, walking the 3x3 windows x K candidate ranks in the
 //     (dy, dx, k) order of the JAX package's _stage (fused_cell.py:251-263)
 //     straight from the halo'd cores, recomputing the pair geometry.
-//   * FORM_CACHE (geom_cache "full"/"ring"/"partial"): sweep 0 walks the
-//     window as FORM_WIN does and writes each anchor slot's VALID
-//     candidates, in window order, to a compacted list: the candidate's
-//     halo'd-core index, ex, ey, r, dw*m1 and dw*mw (the five _N_CACHE
-//     values). Sweep 1 folds in Vol_j and writes back dw*m1*Vol_j and
-//     dw*mw*Vol_j, sweeps 2 and 3 read them: the geometry, its rsqrt and
-//     the x/y/isf loads are done once per step, and the later sweeps walk
-//     ~20 valid candidates instead of 9K = 126. Skipping an invalid
-//     candidate is exact: every term it adds in sweeps 1-3 carries an m1 or
-//     mw factor that is 0 for it, so it adds +-0 to a sum that is never -0.
-//     The TPU's full and ring caches differ only in their VMEM schedule and
-//     the JAX package holds them bit-identical; here both are one cache for
-//     every anchor rank. "partial" caches ranks k < kcut and recomputes the
-//     rest (the split of _kloop_span, fused_cell.py:511-533); a warp that
-//     straddles kcut runs both paths, which costs divergence, not values.
-//     The cache expressions follow the JAX cached ones: sweep 1's
-//     rf = r * (dw*m1*Vol_j + dw*mw*Vol_j), where the recompute form has
-//     r*dw*Vol_j*(m1+mw); sweeps 2-3 agree with the recompute form bit for
-//     bit (m1 and mw are exactly 0 or 1).
-//     Storage is structure of arrays with the slot fastest (entry e of
-//     cached slot s at e*ncs + s), so a warp's loads coalesce; the capacity
-//     is 9K entries per slot, so a list cannot overflow.
+//   * FORM_CACHE (geom_cache "full"/"ring"/"partial"; replaces the JAX
+//     package's geometry cache, cache_plan fused_cell.py:422, written
+//     :663-674, read :743-762, :845-861, :1005-1022): a group of lanes
+//     shares one anchor slot (Lanes, cache_sweep<S, G>): G0 = cg0 lanes
+//     (4-32) in sweep 0, G = cg lanes (1-32) in sweeps 1-3, the wrapper's
+//     CACHE_G0 and CACHE_G. Sweep 0 walks the window one row dy at a time in
+//     two passes: every lane tests its share of the row's 3K candidates for
+//     validity (x, y only), the group ORs the valid window positions into
+//     a bit mask, and the lanes then take the valid candidates in window
+//     order, computing their geometry and writing each to the slot's list:
+//     the candidate's halo'd-core index, ex, ey, r, dw*m1 and dw*mw (the
+//     five _N_CACHE values), in tiles of T = 32/G slots, entry-major in a
+//     tile (list_at), so that the 32 lanes of a warp of sweeps 1-3, which
+//     hold the T slots of one tile, read 32 consecutive words at each step
+//     of their walk. An anchor parked at x = 1e9
+//     (an empty slot) has no valid candidate and skips the walk: the sums
+//     it would take are +0. Sweeps 1-3 split the slot's list over the
+//     lanes and read the candidates' fields from four halo'd float4
+//     record cores that the anchors of the earlier sweeps fill
+//     (CacheBufs::rec), one 16-byte load per record; sweep 1 reads the
+//     list and does not write it. Per-anchor sums are lane partials summed
+//     by an xor butterfly of shuffles (a fixed order, so launches repeat
+//     bit for bit; no atomics); sweep 2's second pass needs the first
+//     pass's sums, which the butterfly leaves in every lane; one lane
+//     writes the anchor's outputs. Skipping an invalid candidate is exact:
+//     every term it adds in sweeps 0-3 carries a w, m1 or mw factor that
+//     is 0 for it, so it adds +-0 to a sum that is never -0. The TPU's
+//     full and ring caches differ only in their VMEM schedule and the JAX
+//     package holds them bit-identical; here both are one cache for every
+//     anchor rank. "partial" caches ranks k < kcut and walks the window
+//     for the rest (the split of _kloop_span, fused_cell.py:511-533), in
+//     the same lane groups. The cache expressions follow the JAX cached
+//     ones: sweep 1's rf = r * (dw*m1*Vol_j + dw*mw*Vol_j), where the
+//     recompute form has r*dw*Vol_j*(m1+mw); sweeps 2-3 take
+//     (dw*m1)*Vol_j and (dw*mw)*Vol_j, equal bit for bit to the recompute
+//     form's (dw*Vol_j)*m1 and (dw*Vol_j)*mw (m1 and mw are exactly 0 or
+//     1). The capacity is 9K entries per slot, so a list cannot overflow.
+//     Bytes per valid pair and sweep: sweep 0 writes 24 (idx + five
+//     floats); sweep 1 reads 24 of list and one 16-byte record; sweep 2
+//     reads 24 of list and three records (48) in each of its two passes;
+//     sweep 3 reads 20 of list (no r) and two records (32).
 //   * FORM_ROWS (fused_rows "1"): one block per tile of one cell row, TX
 //     columns x all K ranks, one thread per anchor slot; the block stages
 //     the 3 candidate rows x (TX+2) columns x K ranks of each field the
@@ -74,15 +95,23 @@
 // in the 50 MB L2, so HBM does not bound the sweeps. One thread per anchor
 // slot gives 54,600 threads at dp=0.01 and 11,760 at dp=0.025 (fewer
 // blocks than SMs): a sweep lasts one thread's serial walk over its
-// candidates, so the sweeps are latency-bound. FORM_CACHE shortens the walk
-// of sweeps 1-3 to the valid candidates at the price of the list's traffic
-// (~24 bytes per valid pair per sweep); FORM_ROWS trades L2 loads for
-// shared-memory loads. One launch per sweep (stream order is the grid-wide
-// barrier the TPU got from its sequential grid), the chunk's step loop
-// enqueued from the host in sph_chunk. Compiled without fast math and with
-// --fmad=false so the arithmetic follows the plain PyTorch twin operation
-// for operation; the remaining differences are the summation order and
-// rsqrtf.
+// candidates, so the sweeps are latency-bound; FORM_ROWS trades L2 loads
+// for shared-memory loads. FORM_CACHE puts a group of lanes on each anchor
+// (8 lanes: 437k threads at dp=0.01, more than the card holds at once) and
+// walks ~17 valid candidates instead of 9K = 126 in sweeps 1-3; what
+// bounds it then is the L1/L2 traffic of the candidate gathers:
+// consecutive list entries of one anchor are mostly consecutive ranks of
+// one cell, nx+2 words apart, so a warp's gather touches about G cache
+// lines, where 32 lanes on 32 neighbouring anchors at one entry touch one
+// or two; hence G for sweeps 1-3 apart from sweep 0's, and the records,
+// which cut sweep 2's gathers per pair and pass from nine to three. The
+// operations (utils/roofline.py) would take a few us. One launch per sweep (stream order is the grid-wide barrier the TPU
+// got from its sequential grid), the chunk's step loop enqueued from the
+// host in sph_chunk; v_max reaches each step's control through the
+// previous step's refresh (block max, one integer atomicMax per block).
+// Compiled without fast math and with --fmad=false so the arithmetic
+// follows the plain PyTorch twin operation for operation; the remaining
+// differences are the summation order and rsqrtf.
 //
 // Plain C interface, loaded with ctypes. Every entry point returns
 // cudaGetLastError(); the Python wrapper raises when it is not 0.
@@ -95,8 +124,10 @@ extern "C" {
 struct SphConst {
   int nyp, K, nx, R;
   int kcut;  // FORM_CACHE: anchor ranks k < kcut use the cache (K: all)
-  int ncs;   // cached slots: nyp * kcut * nx (the entry stride)
+  int ncs;   // cached slots: nyp * kcut * nx
   int tx;    // FORM_ROWS: tile width in cell columns (tx * K <= 128)
+  int cg0;   // FORM_CACHE: lanes per anchor slot in sweep 0 (4 .. 32)
+  int cg;    // FORM_CACHE: lanes per anchor slot in sweeps 1-3 (1 .. 32)
   float DL, h, cut2, sigma, sig025, c225soh, c3soh, cm075soh;
   float rho0, p0, c_f, inv_sigma0, inv_rho0, tchh, h001, hh, c025h;
 };
@@ -113,12 +144,19 @@ struct StepBufs {
   float *rhoH, *pH, *dxs, *dys;  // scratch: halo'd rho/p half, plain shift
 };
 
-// the geometry cache (FORM_CACHE): (9K, ncs) entries + (ncs,) counts
+// the geometry cache (FORM_CACHE): 9K entries per cached slot in tiles of
+// T = 32/cg slots, entry-major in a tile (entry e of cached slot s at
+// list_at(s, e)), + (ncs,) counts
 struct CacheBufs {
   int* idx;           // halo'd-core index of the candidate
   float *ex, *ey, *r;
-  float *c1, *cw;     // dw*m1, dw*mw; times Vol_j after sweep 1
+  float *c1, *cw;     // dw*m1, dw*mw
   int* n;             // valid candidates per cached slot
+  // four halo'd record cores (4 x (nyp+2)*K*(nx+2) float4): what sweeps
+  // 1-3 read of a listed candidate, one 16-byte load per record:
+  // A = {vol, rhoH, pH, vx}, B = {vy, wvx, wvy, 0} (sweep 0),
+  // C = {b11, b12, b21, b22} (sweep 1), D = {vx2, vy2, wvx, wvy} (sweep 2)
+  float4* rec;
 };
 
 struct ShearBufs {
@@ -132,6 +170,10 @@ struct ShearBufs {
 }  // extern "C"
 
 namespace {
+
+// half of the x fill of empty slots (_BIG_X = 1e9): an anchor at or past it
+// is an empty slot
+constexpr float kParked = 5e8f;
 
 enum Form { FORM_WIN = 0, FORM_CACHE = 1, FORM_ROWS = 2 };
 
@@ -168,6 +210,14 @@ __device__ __forceinline__ int hix(const SphConst& c, int iyh, int k,
 
 __device__ __forceinline__ int pix(const SphConst& c, int iy, int k, int ix) {
   return (iy * c.K + k) * c.nx + ix;
+}
+
+// FORM_CACHE: entry e of cached slot cs. A warp of sweeps 1-3 holds the
+// T = 32/cg slots of one tile, lane l of a slot reading entries l, l+cg,
+// ...: its 32 loads of one step of the walk are 32 consecutive words.
+__device__ __forceinline__ int list_at(const SphConst& c, int cs, int e) {
+  const int T = 32 / c.cg;
+  return (cs / T) * (T * 9 * c.K) + e * T + cs % T;
 }
 
 // one halo'd output value with its wrapped x-halo copies (_flush,
@@ -224,18 +274,23 @@ struct Slot {
   bool visited;
 };
 
-// FORM_WIN / FORM_CACHE: one thread per anchor slot over a 1-D grid
-__device__ __forceinline__ bool slot_of(const SphConst& c, const int* occ,
-                                        Slot& s) {
-  int tid = blockIdx.x * blockDim.x + threadIdx.x;
-  if (tid >= c.nyp * c.K * c.nx) return false;
-  s.ix = tid % c.nx;
-  int rest = tid / c.nx;
+// anchor slot i of the (iy, k, ix) order, ix fastest
+__device__ __forceinline__ bool slot_at(const SphConst& c, const int* occ,
+                                        Slot& s, int i) {
+  if (i >= c.nyp * c.K * c.nx) return false;
+  s.ix = i % c.nx;
+  int rest = i / c.nx;
   s.k = rest % c.K;
   s.iy = rest / c.K;
   s.ha = hix(c, s.iy + 1, s.k, s.ix + 1);
   s.visited = s.k < occ[s.iy / c.R];
   return true;
+}
+
+// FORM_WIN and the shear: one thread per anchor slot over a 1-D grid
+__device__ __forceinline__ bool slot_of(const SphConst& c, const int* occ,
+                                        Slot& s) {
+  return slot_at(c, occ, s, blockIdx.x * blockDim.x + threadIdx.x);
 }
 
 // FORM_ROWS: block = (row iy, tile of tx columns from x0), thread = (k, ix)
@@ -252,7 +307,35 @@ __device__ __forceinline__ bool tile_slot(const SphConst& c, const int* occ,
   return true;
 }
 
+// FORM_CACHE: G lanes (a power of two <= 32) share one anchor slot. A
+// per-anchor sum is the xor-butterfly of the lanes' partial sums: a fixed
+// order, and every lane ends with the same bits (a + b == b + a).
+template <int G>
+struct Lanes {
+  int lane;       // 0 .. G-1
+  unsigned mask;  // the group's lanes in the warp
+  __device__ __forceinline__ float sum(float v) const {
+    for (int o = G / 2; o > 0; o >>= 1) v += __shfl_xor_sync(mask, v, o, G);
+    return v;
+  }
+  __device__ __forceinline__ bool lead() const { return lane == 0; }
+};
+
+// slots in the (iy, k, ix) order of slot_of, G consecutive threads each;
+// a 128-thread block holds whole groups, so a group never straddles warps
+template <int G>
+__device__ __forceinline__ bool group_slot(const SphConst& c, const int* occ,
+                                           Slot& s, Lanes<G>& g) {
+  const int wl = threadIdx.x & 31;
+  g.lane = wl & (G - 1);
+  g.mask = G == 32 ? 0xffffffffu : ((1u << G) - 1u) << (wl & ~(G - 1));
+  return slot_at(c, occ, s, (blockIdx.x * blockDim.x + threadIdx.x) / G);
+}
+
 // ---- candidate sources ----
+// Each gives the fields of a candidate (ld), its per-anchor sum (sum: the
+// thread's own for the one-thread forms) and whether this thread writes
+// the anchor's outputs (lead).
 
 // FORM_WIN: the 9K candidates straight from the halo'd cores
 struct Win {
@@ -261,6 +344,8 @@ struct Win {
   int iy, ix;
   template <int F>
   __device__ __forceinline__ float ld(int i) const { return core<F>(b)[i]; }
+  __device__ __forceinline__ float sum(float v) const { return v; }
+  __device__ __forceinline__ bool lead() const { return true; }
   template <class Fn>
   __device__ __forceinline__ void each(Fn&& fn) const {
     for (int dy = 0; dy < 3; ++dy)
@@ -315,6 +400,8 @@ struct Tile {
     static_assert(f >= 0, "field not staged for this sweep");
     return sm[f * 3 * c.K * (c.tx + 2) + i];
   }
+  __device__ __forceinline__ float sum(float v) const { return v; }
+  __device__ __forceinline__ bool lead() const { return true; }
   template <class Fn>
   __device__ __forceinline__ void each(Fn&& fn) const {
     const int W = c.tx + 2;
@@ -326,15 +413,81 @@ struct Tile {
   }
 };
 
-// FORM_CACHE: the anchor slot's compacted list of valid candidates
-struct Cached {
+// FORM_CACHE: the anchor's window, walked by the group (geo_each below);
+// REC: sweep 0 of a cached slot, which writes the list (cs: the slot's
+// index among the cached slots)
+template <int G, bool REC>
+struct GWin : Lanes<G> {
   const SphConst& c;
   const StepBufs& b;
   const CacheBufs& cb;
-  int iy, ix, cs;  // cs: the slot's index among the cached slots
+  int iy, ix, cs;
   template <int F>
   __device__ __forceinline__ float ld(int i) const { return core<F>(b)[i]; }
 };
+
+// FORM_CACHE: the cached slot's list of valid candidates, lane l taking
+// entries l, l+G, ...; sweep S reads the candidates' fields from the
+// records the earlier sweeps wrote
+template <int G, int S>
+struct GList : Lanes<G> {
+  const SphConst& c;
+  const StepBufs& b;
+  const CacheBufs& cb;
+  int cs;
+  __device__ __forceinline__ float4 rec(int q, int i) const {
+    return cb.rec[q * ((c.nyp + 2) * c.K * (c.nx + 2)) + i];
+  }
+  template <int F>
+  __device__ __forceinline__ float ld(int i) const {
+    if constexpr (F == F_VOL) return rec(0, i).x;
+    else if constexpr (F == F_RHOH) return rec(0, i).y;
+    else if constexpr (F == F_PH) return rec(0, i).z;
+    else if constexpr (F == F_VX) return rec(0, i).w;
+    else if constexpr (F == F_VY) return rec(1, i).x;
+    else if constexpr (F == F_WVX) return S == 3 ? rec(3, i).z : rec(1, i).y;
+    else if constexpr (F == F_WVY) return S == 3 ? rec(3, i).w : rec(1, i).z;
+    else if constexpr (F == F_B11) return rec(2, i).x;
+    else if constexpr (F == F_B12) return rec(2, i).y;
+    else if constexpr (F == F_B21) return rec(2, i).z;
+    else if constexpr (F == F_B22) return rec(2, i).w;
+    else if constexpr (F == F_VX2) return rec(3, i).x;
+    else if constexpr (F == F_VY2) return rec(3, i).y;
+    else return core<F>(b)[i];
+  }
+};
+
+// the anchor's record(s) that sweep S feeds, with their wrapped x-halo
+// copies (as store_h writes the cores), from the values the sweep stored
+template <int S>
+__device__ __forceinline__ void store_rec(const SphConst& c,
+                                          const StepBufs& b,
+                                          const CacheBufs& cb,
+                                          const Slot& s) {
+  const int nh = (c.nyp + 2) * c.K * (c.nx + 2), ha = s.ha;
+  float4 v[2];
+  int q0, nq = 1;
+  if constexpr (S == 0) {
+    v[0] = make_float4(b.vol[ha], b.rhoH[ha], b.pH[ha], b.vx[ha]);
+    v[1] = make_float4(b.vy[ha], b.wvx[ha], b.wvy[ha], 0.0f);
+    q0 = 0;
+    nq = 2;
+  } else if constexpr (S == 1) {
+    v[0] = make_float4(b.b11[ha], b.b12[ha], b.b21[ha], b.b22[ha]);
+    q0 = 2;
+  } else {
+    v[0] = make_float4(b.vx2[ha], b.vy2[ha], b.wvx[ha], b.wvy[ha]);
+    q0 = 3;
+  }
+  int at[3] = {ha, -1, -1};
+  if (c.nx >= 3) {
+    if (s.ix == c.nx - 1) at[1] = hix(c, s.iy + 1, s.k, 0);
+    if (s.ix == 0) at[2] = hix(c, s.iy + 1, s.k, c.nx + 1);
+  }
+  for (int q = 0; q < nq; ++q)
+    for (int a = 0; a < 3; ++a)
+      if (at[a] >= 0) cb.rec[(q0 + q) * nh + at[a]] = v[q];
+}
 
 // ---- the pair loops of the sweeps, per source ----
 
@@ -350,28 +503,88 @@ __device__ __forceinline__ void geo_each(const SphConst& c, const Src& src,
   });
 }
 
-// FORM_CACHE sweep 0: the window walk, writing the valid candidates
-template <class Fn>
-__device__ __forceinline__ void geo_each(const SphConst& c, const Cached& src,
-                                         float xa, float ya, bool need_w,
-                                         Fn&& fn) {
+// FORM_CACHE: the group's window walk, one window row dy at a time (3K <=
+// 32*kMaskWords candidates), in two passes. Pass 1 tests every candidate
+// of the row for validity, the lanes taking them dx fastest, so that the
+// group's loads fall on few cache lines, and ORs the valid window
+// positions into a bit mask that every lane of the group then holds. Pass
+// 2 takes the valid candidates in window order, lane l the l-th, (l+G)-th
+// ...: their geometry reaches fn and, with REC, entry n + p of the list.
+// Only valid candidates reach fn: an
+// invalid one adds +-0 to sums that start at +0 (see the note above). An
+// anchor parked at x = 1e9 (an empty slot) has no valid candidate, so it
+// skips the walk.
+constexpr int kMaskWords = 4;
+
+// the window position of set bit p (p < popcount) of a row's mask
+__device__ __forceinline__ int nth_bit(const unsigned (&m)[kMaskWords],
+                                       int p) {
+  int base = 0;
+#pragma unroll
+  for (int w = 0; w < kMaskWords; ++w) {
+    const int cw = __popc(m[w]);
+    if (p < cw) return base + __fns(m[w], 0, p + 1);
+    p -= cw;
+    base += 32;
+  }
+  return -1;
+}
+
+template <int G, bool REC, class Fn>
+__device__ __forceinline__ void geo_each(const SphConst& c,
+                                         const GWin<G, REC>& src, float xa,
+                                         float ya, bool need_w, Fn&& fn) {
   const CacheBufs& cb = src.cb;
-  int e = src.cs, n = 0;
-  geo_each(c, Win{c, src.b, src.iy, src.ix}, xa, ya, need_w,
-           [&](int i, const Geo& g) {
-             if (g.valid) {
-               cb.idx[e] = i;
-               cb.ex[e] = g.ex;
-               cb.ey[e] = g.ey;
-               cb.r[e] = g.r;
-               cb.c1[e] = g.dw * g.m1;
-               cb.cw[e] = g.dw * g.mw;
-               e += c.ncs;
-               ++n;
-             }
-             fn(i, g);
-           });
-  cb.n[src.cs] = n;
+  const StepBufs& b = src.b;
+  const int K = c.K;
+  int n = 0;
+  if (xa < kParked) {
+    for (int dy = 0; dy < 3; ++dy) {
+      const int row = (src.iy + dy) * K;
+      unsigned m[kMaskWords] = {};
+      for (int t = src.lane; t < 3 * K; t += G) {
+        const int j = t / 3, dx = t - 3 * j;
+        const int i = (row + j) * (c.nx + 2) + src.ix + dx;
+        float ddx = xa - b.x[i];
+        if (c.nx < 3) ddx = ddx - c.DL * rintf(ddx / c.DL);
+        const float ddy = ya - b.y[i];
+        const float r2 = ddx * ddx + ddy * ddy;
+        if (r2 < c.cut2 && r2 > 1e-24f) {
+          const int w = dx * K + j;
+#pragma unroll
+          for (int q = 0; q < kMaskWords; ++q)
+            if ((w >> 5) == q) m[q] |= 1u << (w & 31);
+        }
+      }
+      int cnt = 0;
+#pragma unroll
+      for (int q = 0; q < kMaskWords; ++q) {
+        for (int o = G / 2; o > 0; o >>= 1)
+          m[q] |= __shfl_xor_sync(src.mask, m[q], o, G);
+        cnt += __popc(m[q]);
+      }
+      for (int p = src.lane; p < cnt; p += G) {
+        const int w = nth_bit(m, p);
+        const int dx = w / K, j = w - dx * K;
+        const int i = (row + j) * (c.nx + 2) + src.ix + dx;
+        const Geo g = geometry(c, xa, ya, b.x[i], b.y[i], b.isf[i], need_w);
+        fn(i, g);
+        if constexpr (REC) {
+          const int e = list_at(c, src.cs, n + p);
+          cb.idx[e] = i;
+          cb.ex[e] = g.ex;
+          cb.ey[e] = g.ey;
+          cb.r[e] = g.r;
+          cb.c1[e] = g.dw * g.m1;
+          cb.cw[e] = g.dw * g.mw;
+        }
+      }
+      n += cnt;
+    }
+  }
+  if constexpr (REC) {
+    if (src.lead()) cb.n[src.cs] = n;
+  }
 }
 
 // sweep 1: (rf, ex, ey) per pair, rf = r*dw*Vol_j*(m1+mw)
@@ -383,18 +596,18 @@ __device__ __forceinline__ void kgc_each(const SphConst& c, const Src& src,
   });
 }
 
-// FORM_CACHE sweep 1: folds Vol_j into the list (fused_cell.py:743-762)
-template <class Fn>
-__device__ __forceinline__ void kgc_each(const SphConst& c, const Cached& src,
-                                         float, float, Fn&& fn) {
+// FORM_CACHE sweep 1 from the list: rf = r*(dw*m1*Vol_j + dw*mw*Vol_j),
+// the JAX cached association (fused_cell.py:743-762)
+template <int G, int S, class Fn>
+__device__ __forceinline__ void kgc_each(const SphConst& c,
+                                         const GList<G, S>& src, float, float,
+                                         Fn&& fn) {
   const CacheBufs& cb = src.cb;
   const int n = cb.n[src.cs];
-  for (int t = 0, e = src.cs; t < n; ++t, e += c.ncs) {
-    const float volv = src.b.vol[cb.idx[e]];
-    const float dwv1 = cb.c1[e] * volv, dwvw = cb.cw[e] * volv;
-    cb.c1[e] = dwv1;
-    cb.cw[e] = dwvw;
-    fn(cb.r[e] * (dwv1 + dwvw), cb.ex[e], cb.ey[e]);
+  for (int t = src.lane; t < n; t += G) {
+    const int e = list_at(c, src.cs, t);
+    const float volv = src.template ld<F_VOL>(cb.idx[e]);
+    fn(cb.r[e] * (cb.c1[e] * volv + cb.cw[e] * volv), cb.ex[e], cb.ey[e]);
   }
 }
 
@@ -408,14 +621,20 @@ __device__ __forceinline__ void pair_each(const SphConst& c, const Src& src,
   });
 }
 
-template <class Fn>
+// FORM_CACHE sweeps 2-3 from the list: dw*m1*Vol_j and dw*mw*Vol_j are
+// the products the recompute form forms (m1 and mw are exactly 0 or 1)
+template <int G, int S, class Fn>
 __device__ __forceinline__ void pair_each(const SphConst& c,
-                                          const Cached& src, float, float,
-                                          Fn&& fn) {
+                                          const GList<G, S>& src, float,
+                                          float, Fn&& fn) {
   const CacheBufs& cb = src.cb;
   const int n = cb.n[src.cs];
-  for (int t = 0, e = src.cs; t < n; ++t, e += c.ncs)
-    fn(cb.idx[e], cb.r[e], cb.ex[e], cb.ey[e], cb.c1[e], cb.cw[e]);
+  for (int t = src.lane; t < n; t += G) {
+    const int e = list_at(c, src.cs, t);
+    const int i = cb.idx[e];
+    const float volv = src.template ld<F_VOL>(i);
+    fn(i, cb.r[e], cb.ex[e], cb.ey[e], cb.c1[e] * volv, cb.cw[e] * volv);
+  }
 }
 
 // ---- sweep 0: density, Vol, half-kick EOS, pair count
@@ -434,6 +653,10 @@ __device__ __forceinline__ void body0(const SphConst& c, const StepBufs& b,
       s_m1 += g.m1;
       s_mw += g.mw;
     });
+    s_in = src.sum(s_in);
+    s_ct = src.sum(s_ct);
+    s_m1 = src.sum(s_m1);
+    s_mw = src.sum(s_mw);
     const float sig_inner = c.sigma + s_in;  // W(0) = sigma
     const float massa = b.mass[s.ha];
     const float mass_safe = massa > 0.0f ? massa : 1.0f;
@@ -448,6 +671,7 @@ __device__ __forceinline__ void body0(const SphConst& c, const StepBufs& b,
     p_half = af > 0.0f ? c.p0 * (rho_half / c.rho0 - 1.0f) : 0.0f;
     cnt = af * (0.5f * s_m1 + s_mw);
   }
+  if (!src.lead()) return;
   store_h(c, b.vol, s.iy, s.k, s.ix, vol);
   store_h(c, b.rhoH, s.iy, s.k, s.ix, rho_half);
   store_h(c, b.pH, s.iy, s.k, s.ix, p_half);
@@ -468,9 +692,9 @@ __device__ __forceinline__ void body1(const SphConst& c, const StepBufs& b,
       a12 += rf * ex * ey;
       a22 += rf * ey * ey;
     });
-    a11 = -a11;
-    a12 = -a12;
-    a22 = -a22;
+    a11 = -src.sum(a11);
+    a12 = -src.sum(a12);
+    a22 = -src.sum(a22);
     const float a21 = a12;
     // regularized pseudo-inverse blend (c:321-365)
     const float ata11 = a11 * a11 + a21 * a21 + 1e-8f;
@@ -499,6 +723,7 @@ __device__ __forceinline__ void body1(const SphConst& c, const StepBufs& b,
     o21 = fl ? w1 * p21 : 0.0f;
     o22 = fl ? w1 * p22 + w2 : 1.0f;
   }
+  if (!src.lead()) return;
   store_h(c, b.b11, s.iy, s.k, s.ix, o11);
   store_h(c, b.b12, s.iy, s.k, s.ix, o12);
   store_h(c, b.b21, s.iy, s.k, s.ix, o21);
@@ -547,6 +772,10 @@ __device__ __forceinline__ void body2(const SphConst& c, const StepBufs& b,
       inc_x += -dwv1 * tx_f - 2.0f * dwvw * tx_w;
       inc_y += -dwv1 * ty_f - 2.0f * dwvw * ty_w;
     });
+    acc_x = src.sum(acc_x);
+    acc_y = src.sum(acc_y);
+    inc_x = src.sum(inc_x);
+    inc_y = src.sum(inc_y);
     const bool fl = af > 0.0f;
     fpx = fl ? acc_x * vola + massa * g : 0.0f;
     fpy = fl ? acc_y * vola : 0.0f;
@@ -580,12 +809,15 @@ __device__ __forceinline__ void body2(const SphConst& c, const StepBufs& b,
       pacc_x += p_face * tx_f * dwv1 + (pha + p_wall) * tx_w * dwvw;
       pacc_y += p_face * ty_f * dwv1 + (pha + p_wall) * ty_w * dwvw;
     });
+    pacc_x = src.sum(pacc_x);
+    pacc_y = src.sum(pacc_y);
     fx = fl ? -pacc_x * vola : 0.0f;
     fy = fl ? -pacc_y * vola : 0.0f;
     const float inv_m = 1.0f / mass_safe;
     vx2 = fl ? vxa + (fpx + fx) * inv_m * dt : 0.0f;
     vy2 = fl ? vya + (fpy + fy) * inv_m * dt : 0.0f;
   }
+  if (!src.lead()) return;
   const int p = pix(c, s.iy, s.k, s.ix);
   store_h(c, b.vx2, s.iy, s.k, s.ix, vx2);
   store_h(c, b.vy2, s.iy, s.k, s.ix, vy2);
@@ -620,6 +852,7 @@ __device__ __forceinline__ void body3(const SphConst& c, const StepBufs& b,
                   (vy2a - src.template ld<F_WVY>(i)) * ey);
       rate += u_jump_f * dwv1 + u_jump_w * dwvw;
     });
+    rate = src.sum(rate);
     const bool fl = af > 0.0f;
     drho_new = fl ? rate * rhoha : 0.0f;
     float rn = rhoha + 0.5f * dt * drho_new;
@@ -632,6 +865,7 @@ __device__ __forceinline__ void body3(const SphConst& c, const StepBufs& b,
     x2 = fl ? xs : xa;
     y2 = fl ? ys : ya;
   }
+  if (!src.lead()) return;
   b.rho[p] = rho_new;
   b.p[p] = p_new;
   b.drho[p] = drho_new;
@@ -656,13 +890,6 @@ __device__ __forceinline__ void run_sweep(const SphConst& c,
     if (on) body(s, Tile<FS>{c, tile_sm, s.ix - x0});
   } else {
     if (!slot_of(c, b.occ, s)) return;
-    if constexpr (FORM == FORM_CACHE) {
-      if (s.k < c.kcut) {
-        const int cs = (s.iy * c.kcut + s.k) * c.nx + s.ix;
-        body(s, Cached{c, b, cb, s.iy, s.ix, cs});
-        return;
-      }
-    }
     body(s, Win{c, b, s.iy, s.ix});
   }
 }
@@ -699,75 +926,135 @@ __global__ void __launch_bounds__(128)
   });
 }
 
-// ---- chunk control: v_max over the whole velocity cores, dt, the active
-//      flag and the Kahan clock (fused_cell.py:1602-1618, :1664-1667).
-//      clock = [t, t_comp, interval, dt_visc, dt_body]; steps = [done,
-//      n_sub]. One block of 1024 threads. ----
-__global__ void __launch_bounds__(1024) chunk_ctrl(SphConst c, StepBufs b,
-                                                   int n_h, float* clock,
-                                                   int* steps) {
-  __shared__ float smax[1024];
-  float m = 0.0f;
-  for (int i = threadIdx.x; i < n_h; i += blockDim.x) {
-    const float u = b.vx[i], v = b.vy[i];
-    m = fmaxf(m, u * u + v * v);
+template <int S, class Src>
+__device__ __forceinline__ void body(const SphConst& c, const StepBufs& b,
+                                     const Slot& s, const Src& src) {
+  if constexpr (S == 0) body0(c, b, s, src);
+  else if constexpr (S == 1) body1(c, b, s, src);
+  else if constexpr (S == 2) body2(c, b, s, src);
+  else body3(c, b, s, src);
+}
+
+// FORM_CACHE sweep S, G lanes per anchor slot: a cached slot's sweep 0
+// walks the window and writes the list, its sweeps 1-3 walk the list;
+// ranks k >= kcut ("partial") walk the window in every sweep
+template <int S, int G>
+__global__ void __launch_bounds__(128)
+    cache_sweep(SphConst c, StepBufs b, CacheBufs cb) {
+  if (b.dyn[4] == 0.0f) return;  // the chunk's interval or n_sub is done
+  Slot s;
+  Lanes<G> g;
+  if (!group_slot<G>(c, b.occ, s, g)) return;
+  const int cs = (s.iy * c.kcut + s.k) * c.nx + s.ix;
+  if (s.k >= c.kcut) {
+    body<S>(c, b, s, GWin<G, false>{g, c, b, cb, s.iy, s.ix, 0});
+  } else if constexpr (S == 0) {
+    body<0>(c, b, s, GWin<G, true>{g, c, b, cb, s.iy, s.ix, cs});
+    if (!s.visited && g.lead()) cb.n[cs] = 0;
+  } else {
+    body<S>(c, b, s, GList<G, S>{g, c, b, cb, cs});
   }
-  smax[threadIdx.x] = m;
+  if constexpr (S < 3) {
+    if (g.lead()) store_rec<S>(c, b, cb, s);
+  }
+}
+
+// the largest v^2 = vx^2 + vy^2 of a block's threads into *vmax2 as float
+// bits: the values are >= +0, so their bits order as unsigned integers and
+// an integer max is exact in any order
+__device__ __forceinline__ void block_vmax(float m, unsigned* vmax2) {
+  __shared__ unsigned wmax[32];
+  unsigned v = __reduce_max_sync(0xffffffffu, __float_as_uint(m));
+  const int w = threadIdx.x >> 5, l = threadIdx.x & 31;
+  if (l == 0) wmax[w] = v;
   __syncthreads();
-  for (int w = blockDim.x / 2; w > 0; w >>= 1) {
-    if (threadIdx.x < w)
-      smax[threadIdx.x] = fmaxf(smax[threadIdx.x], smax[threadIdx.x + w]);
-    __syncthreads();
+  if (w == 0) {
+    v = __reduce_max_sync(0xffffffffu,
+                          l < (int)(blockDim.x >> 5) ? wmax[l] : 0u);
+    if (l == 0) atomicMax(vmax2, v);
   }
-  if (threadIdx.x == 0) {
-    const int done = steps[0];
-    const float t = clock[0], tc = clock[1], interval = clock[2];
-    if (done < steps[1] && t < interval) {
-      const float v_max = sqrtf(smax[0]);
-      const float remain = interval - t;
-      const float dt_ac = c.c025h / fmaxf(c.c_f + v_max, 1e-12f);
-      const float dt = fmaxf(
-          fminf(fminf(dt_ac, clock[3]), fminf(clock[4], remain)), 1e-12f);
-      const float yk = dt - tc;
-      const float t2 = t + yk;
-      clock[0] = t2;
-      clock[1] = (t2 - t) - yk;
-      steps[0] = done + 1;
-      b.dyn[0] = dt;
-      b.dyn[4] = 1.0f;
-    } else {
-      b.dyn[4] = 0.0f;
-    }
+}
+
+// ---- v^2 max over the chunk's input velocity cores, for its first step
+//      (*vmax2 zeroed by the caller) ----
+__global__ void __launch_bounds__(256) vmax_init(const float* vx,
+                                                 const float* vy, int n,
+                                                 unsigned* vmax2) {
+  const int i = blockIdx.x * blockDim.x + threadIdx.x;
+  float m = 0.0f;
+  if (i < n) {
+    const float u = vx[i], v = vy[i];
+    m = u * u + v * v;
+  }
+  block_vmax(m, vmax2);
+}
+
+// ---- chunk control: v_max, dt, the active flag and the Kahan clock
+//      (fused_cell.py:1602-1618, :1664-1667). v_max is over the whole
+//      halo'd velocity cores (:1612): vmax2 holds its square, from
+//      vmax_init for the first step and from the previous step's refresh,
+//      which writes those cores, after; an active step zeroes it for its
+//      own refresh. clock = [t, t_comp, interval, dt_visc, dt_body];
+//      steps = [done, n_sub]. One thread. ----
+__global__ void chunk_ctrl(SphConst c, StepBufs b, unsigned* vmax2,
+                           float* clock, int* steps) {
+  const int done = steps[0];
+  const float t = clock[0], tc = clock[1], interval = clock[2];
+  if (done < steps[1] && t < interval) {
+    const float v_max = sqrtf(__uint_as_float(*vmax2));
+    *vmax2 = 0u;
+    const float remain = interval - t;
+    const float dt_ac = c.c025h / fmaxf(c.c_f + v_max, 1e-12f);
+    const float dt = fmaxf(
+        fminf(fminf(dt_ac, clock[3]), fminf(clock[4], remain)), 1e-12f);
+    const float yk = dt - tc;
+    const float t2 = t + yk;
+    clock[0] = t2;
+    clock[1] = (t2 - t) - yk;
+    steps[0] = done + 1;
+    b.dyn[0] = dt;
+    b.dyn[4] = 1.0f;
+  } else {
+    b.dyn[4] = 0.0f;
   }
 }
 
 // ---- halo refresh of the working state (fused_cell.py:1680-1692):
-//      positions keep translated x-halo columns and stay unwrapped ----
-__global__ void __launch_bounds__(256) refresh(SphConst c, StepBufs b) {
+//      positions keep translated x-halo columns and stay unwrapped; the
+//      block max of the new v^2 goes to vmax2 for the next step ----
+__global__ void __launch_bounds__(256) refresh(SphConst c, StepBufs b,
+                                               unsigned* vmax2) {
+  if (b.dyn[4] == 0.0f) return;
   const int i = blockIdx.x * blockDim.x + threadIdx.x;
   const int W = c.nx + 2;
-  if (i >= (c.nyp + 2) * c.K * W || b.dyn[4] == 0.0f) return;
-  b.vx[i] = b.vx2[i];
-  b.vy[i] = b.vy2[i];
-  const int ixh = i % W;
-  const int iyh = (i / W) / c.K;
-  const int k = (i / W) % c.K;
-  if (iyh < 1 || iyh > c.nyp) return;
-  const int iy = iyh - 1;
-  if (ixh >= 1 && ixh <= c.nx) {
-    const int p = pix(c, iy, k, ixh - 1);
-    b.x[i] = b.x2[p];
-    b.y[i] = b.y2[p];
-    b.dr[p] = b.drho[p];
-  } else if (c.nx >= 3 && ixh == 0) {
-    const int p = pix(c, iy, k, c.nx - 1);
-    b.x[i] = b.x2[p] - c.DL;
-    b.y[i] = b.y2[p];
-  } else if (c.nx >= 3) {
-    const int p = pix(c, iy, k, 0);
-    b.x[i] = b.x2[p] + c.DL;
-    b.y[i] = b.y2[p];
+  float m = 0.0f;
+  if (i < (c.nyp + 2) * c.K * W) {
+    const float u = b.vx2[i], v = b.vy2[i];
+    b.vx[i] = u;
+    b.vy[i] = v;
+    m = u * u + v * v;
+    const int ixh = i % W;
+    const int iyh = (i / W) / c.K;
+    const int k = (i / W) % c.K;
+    const int iy = iyh - 1;
+    if (iyh < 1 || iyh > c.nyp) {
+      // y-halo rows: velocities only
+    } else if (ixh >= 1 && ixh <= c.nx) {
+      const int p = pix(c, iy, k, ixh - 1);
+      b.x[i] = b.x2[p];
+      b.y[i] = b.y2[p];
+      b.dr[p] = b.drho[p];
+    } else if (c.nx >= 3 && ixh == 0) {
+      const int p = pix(c, iy, k, c.nx - 1);
+      b.x[i] = b.x2[p] - c.DL;
+      b.y[i] = b.y2[p];
+    } else if (c.nx >= 3) {
+      const int p = pix(c, iy, k, 0);
+      b.x[i] = b.x2[p] + c.DL;
+      b.y[i] = b.y2[p];
+    }
   }
+  block_vmax(m, vmax2);
 }
 
 // ---- wall-shear partials (sph_physics_mex.c:1713-1742;
@@ -864,14 +1151,46 @@ void launch_sweeps(const SphConst& c, const StepBufs& b, const CacheBufs& cb,
   }
 }
 
-void sweeps(const SphConst& c, const StepBufs& b, const CacheBufs& cb,
-            int form, int first, int count, cudaStream_t st) {
-  if (form == FORM_CACHE)
-    launch_sweeps<FORM_CACHE>(c, b, cb, first, count, st);
-  else if (form == FORM_ROWS)
-    launch_sweeps<FORM_ROWS>(c, b, cb, first, count, st);
+template <int G>
+void launch_cache(const SphConst& c, const StepBufs& b, const CacheBufs& cb,
+                  int s, cudaStream_t st) {
+  const int nb = blocks_for(c.nyp * c.K * c.nx * G, 128);
+  if (s == 0) {
+    if constexpr (G >= 4) cache_sweep<0, G><<<nb, 128, 0, st>>>(c, b, cb);
+  } else if (s == 1)
+    cache_sweep<1, G><<<nb, 128, 0, st>>>(c, b, cb);
+  else if (s == 2)
+    cache_sweep<2, G><<<nb, 128, 0, st>>>(c, b, cb);
   else
+    cache_sweep<3, G><<<nb, 128, 0, st>>>(c, b, cb);
+}
+
+cudaError_t sweeps(const SphConst& c, const StepBufs& b, const CacheBufs& cb,
+                   int form, int first, int count, cudaStream_t st) {
+  if (form == FORM_CACHE) {
+    for (int s = first; s < first + count; ++s) {
+      const int g = s == 0 ? c.cg0 : c.cg;
+      if (g == 1 && s > 0)
+        launch_cache<1>(c, b, cb, s, st);
+      else if (g == 2 && s > 0)
+        launch_cache<2>(c, b, cb, s, st);
+      else if (g == 4)
+        launch_cache<4>(c, b, cb, s, st);
+      else if (g == 8)
+        launch_cache<8>(c, b, cb, s, st);
+      else if (g == 16)
+        launch_cache<16>(c, b, cb, s, st);
+      else if (g == 32)
+        launch_cache<32>(c, b, cb, s, st);
+      else
+        return cudaErrorInvalidValue;
+    }
+  } else if (form == FORM_ROWS) {
+    launch_sweeps<FORM_ROWS>(c, b, cb, first, count, st);
+  } else {
     launch_sweeps<FORM_WIN>(c, b, cb, first, count, st);
+  }
+  return cudaSuccess;
 }
 
 }  // namespace
@@ -885,9 +1204,9 @@ extern "C" {
 int sph_step_sweeps(const SphConst* cp, const StepBufs* bp,
                     const CacheBufs* cbp, int form, int first, int count,
                     void* stream) {
-  sweeps(*cp, *bp, *cbp, form, first, count,
-         static_cast<cudaStream_t>(stream));
-  return static_cast<int>(cudaGetLastError());
+  const cudaError_t e = sweeps(*cp, *bp, *cbp, form, first, count,
+                               static_cast<cudaStream_t>(stream));
+  return static_cast<int>(e != cudaSuccess ? e : cudaGetLastError());
 }
 
 int sph_step(const SphConst* cp, const StepBufs* bp, const CacheBufs* cbp,
@@ -908,18 +1227,23 @@ int sph_expand(const float* v, float* out, int rows, int bx, int K,
   return static_cast<int>(cudaGetLastError());
 }
 
+// vmax2: one zeroed unsigned, left holding the bits of v_max^2 over the
+// final working velocity cores
 int sph_chunk(const SphConst* cp, const StepBufs* bp, const CacheBufs* cbp,
-              int form, float* clock, int* steps, int n_sub, void* stream) {
+              int form, float* clock, int* steps, unsigned* vmax2, int n_sub,
+              void* stream) {
   const SphConst c = *cp;
   const StepBufs b = *bp;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   const int n_h = (c.nyp + 2) * c.K * (c.nx + 2);
   const int nh = blocks_for(n_h, 256);
+  vmax_init<<<nh, 256, 0, st>>>(b.vx, b.vy, n_h, vmax2);
   for (int i = 0; i < n_sub; ++i) {
-    chunk_ctrl<<<1, 1024, 0, st>>>(c, b, n_h, clock, steps);
-    sweeps(c, b, *cbp, form, 0, 4, st);
-    refresh<<<nh, 256, 0, st>>>(c, b);
-    const cudaError_t e = cudaGetLastError();
+    chunk_ctrl<<<1, 1, 0, st>>>(c, b, vmax2, clock, steps);
+    cudaError_t e = sweeps(c, b, *cbp, form, 0, 4, st);
+    if (e != cudaSuccess) return static_cast<int>(e);
+    refresh<<<nh, 256, 0, st>>>(c, b, vmax2);
+    e = cudaGetLastError();
     if (e != cudaSuccess) return static_cast<int>(e);
   }
   return static_cast<int>(cudaGetLastError());

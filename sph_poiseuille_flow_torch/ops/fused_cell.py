@@ -448,6 +448,42 @@ def _geometry(spec: GridSpec, xa, ya, xv, yv, isfv, need_w=True):
     return r, dx * rs, dy * rs, w, dw, m1, mw
 
 
+def cache_list_plain(spec: GridSpec, lay: FusedLayout, xH, yH,
+                     k_cut: int) -> dict:
+    """Plain version of the geometry-cache form's list as its sweep 0
+    writes it (csrc/fused_cell.cu FORM_CACHE, read back by
+    ``fused_cell_cuda.StepBuffers.cache_list``): for each cached slot
+    s = (iy*k_cut + k)*nx + ix (ranks k < ``k_cut``), the valid candidates
+    of a visited anchor in the (dy, dx, k) window order, with their
+    halo'd-core index ``idx``, ``ex``, ``ey``, ``r``, ``c1`` = dw*m1 and
+    ``cw`` = dw*mw, as (ncs, 9K) rows whose entries e >= n[s] are zero
+    (idx -1); ``n`` (ncs,) int32, 0 for ranks the row group does not
+    visit. For tests and chip_smoke.py only."""
+    nyp, K, nx = xH.shape[0] - 2, spec.K, spec.nx
+    r, ex, ey, _, dw, m1, mw = _geometry(
+        spec, _pair(_anc(xH)), _pair(_anc(yH)), _win(spec, xH),
+        _win(spec, yH), _win(spec, lay.isf_c), need_w=False)
+    hidx = torch.arange(xH.numel(), device=xH.device).reshape(xH.shape)
+    full = (nyp, K, 9 * K, nx)
+
+    def slots(t):   # (nyp, K, 9K, nx) -> (ncs, 9K), cached ranks only
+        return t.expand(full)[:, :k_cut].permute(0, 1, 3, 2).reshape(
+            -1, 9 * K)
+
+    valid = slots((m1 + mw > 0) & _visited(spec, lay.occ, nyp).unsqueeze(-1))
+    order = torch.argsort((~valid).to(torch.int8), dim=1, stable=True)
+    n = valid.sum(dim=1)
+    used = torch.arange(9 * K, device=xH.device)[None, :] < n[:, None]
+    out = {name: torch.where(used, torch.gather(slots(t), 1, order),
+                             torch.zeros((), dtype=t.dtype, device=t.device))
+           for name, t in (("ex", ex), ("ey", ey), ("r", r),
+                           ("c1", dw * m1), ("cw", dw * mw))}
+    out["idx"] = torch.where(used, torch.gather(slots(_win(spec, hidx)), 1,
+                                                order), -1).to(torch.int32)
+    out["n"] = n.to(torch.int32)
+    return out
+
+
 class _Sweep:
     """What the plain sweeps share: the step's inputs, the masked pair
     geometry of the anchors against their candidate windows, and the
@@ -516,10 +552,10 @@ def _sweep1_plain(s: _Sweep):
     volv = _win(spec, o["volH"])
     rf = r * dw * volv * (m1 + mw)
     if n_cached > 0:
-        # the cache holds dw*m1 and dw*mw and folds Vol_j into them; sweeps
-        # 2-3 read those products, which equal (dw*Vol_j)*m1 and
-        # (dw*Vol_j)*mw bit for bit (m1, mw are exactly 0 or 1), so only
-        # rf associates differently
+        # the cache holds dw*m1 and dw*mw and sweeps 1-3 multiply them by
+        # Vol_j; sweeps 2-3 get (dw*m1)*Vol_j and (dw*mw)*Vol_j, which equal
+        # (dw*Vol_j)*m1 and (dw*Vol_j)*mw bit for bit (m1, mw are exactly 0
+        # or 1), so only rf associates differently
         rf_c = r * ((dw * m1) * volv + (dw * mw) * volv)
         cached = (torch.arange(spec.K, device=rf.device)
                   < n_cached).reshape(1, spec.K, 1, 1)
@@ -898,7 +934,7 @@ def fused_chunk_call(spec: GridSpec, lay: FusedLayout, xH, yH, vxH, vyH,
     # the clock buffer is assembled on the host and crosses in one copy
     host = torch.empty((), dtype=xH.dtype)
     dt_visc, dt_body = chunk_dt_limits(spec, rho0, float(g), float(mu), host)
-    work, o, steps, t, tc = fused_cell_cuda.chunk(
+    work, o, steps, t, tc, _ = fused_cell_cuda.chunk(
         spec, plan(spec)[0], lay, xH, yH, vxH, vyH, drP, t_local, t_comp,
         interval_len, n_sub, dt_visc, dt_body,
         (rho0, p0, c_f, inv_sigma0, transport_coeff, g, mu,

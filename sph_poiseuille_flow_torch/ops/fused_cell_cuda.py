@@ -21,6 +21,7 @@ from __future__ import annotations
 
 import ctypes
 import hashlib
+import math
 import os
 import shutil
 import subprocess
@@ -51,6 +52,16 @@ LAUNCHES = {"fused_step": 0, "fused_step_cache": 0, "fused_step_rows": 0,
 _FORMS = {"none": (0, ""), "full": (1, "_cache"), "ring": (1, "_cache"),
           "partial": (1, "_cache"), "rows": (2, "_rows")}
 
+# lanes per anchor slot in the geometry-cache form (``cache_groups``):
+# csrc/fused_cell.cu instantiates each of CACHE_GROUPS0 for sweep 0 and
+# each of CACHE_GROUPS for sweeps 1-3
+CACHE_GROUPS0 = (4, 8, 16, 32)
+CACHE_GROUPS = (1, 2, 4, 8, 16, 32)
+CACHE_THREADS = 160_000   # threads a cache sweep should put on the card
+CACHE_G_MAX = 8           # lanes per anchor in sweeps 1-3 at most
+# words of the kernel's per-window-row validity mask (kMaskWords)
+CACHE_MASK_WORDS = 4
+
 _lib = None
 
 
@@ -61,7 +72,7 @@ def reset_launch_counts() -> None:
 
 class _Const(ctypes.Structure):
     _fields_ = ([(n, ctypes.c_int) for n in ("nyp", "K", "nx", "R", "kcut",
-                                              "ncs", "tx")]
+                                              "ncs", "tx", "cg0", "cg")]
                 + [(n, ctypes.c_float) for n in (
                     "DL", "h", "cut2", "sigma", "sig025", "c225soh",
                     "c3soh", "cm075soh", "rho0", "p0", "c_f", "inv_sigma0",
@@ -82,7 +93,7 @@ _SHEAR_PTRS = ("x", "y", "isf", "vol", "vx", "b11", "b12", "b21", "b22",
                "wvx", "wbot", "wtop", "occ", "tb", "tt")
 
 
-_CACHE_PTRS = ("idx", "ex", "ey", "r", "c1", "cw", "n")
+_CACHE_PTRS = ("idx", "ex", "ey", "r", "c1", "cw", "n", "rec")
 
 
 class _CacheBufs(ctypes.Structure):
@@ -136,7 +147,7 @@ def _load():
         vp, ip = ctypes.c_void_p, ctypes.c_int
         lib.sph_step.argtypes = [vp, vp, vp, ip, vp]
         lib.sph_step_sweeps.argtypes = [vp, vp, vp, ip, ip, ip, vp]
-        lib.sph_chunk.argtypes = [vp, vp, vp, ip, vp, vp, ip, vp]
+        lib.sph_chunk.argtypes = [vp, vp, vp, ip, vp, vp, vp, ip, vp]
         lib.sph_shear.argtypes = [vp, vp, vp]
         lib.sph_noop.argtypes = [vp, vp, vp]
         lib.sph_expand.argtypes = [vp, vp, ip, ip, ip, vp]
@@ -145,6 +156,19 @@ def _load():
             fn.restype = ip
         _lib = lib
     return _lib
+
+
+def cache_groups(n_slots: int) -> tuple:
+    """(G0, G): lanes per anchor slot in the geometry-cache form's sweep 0
+    (the window walk) and sweeps 1-3 (the list walk), from the number of
+    anchor slots. G0 is the fewest of CACHE_GROUPS0 that put
+    CACHE_THREADS threads on the card; G is G0 but at most CACHE_G_MAX:
+    the lanes of one anchor gather from about as many cache lines, so
+    sweeps 1-3 want fewer lanes than the walk (chip_smoke.py phase 4 times
+    every size at dp=0.01 and dp=0.025; PERF.md)."""
+    g0 = next((g for g in CACHE_GROUPS0 if n_slots * g >= CACHE_THREADS),
+              CACHE_GROUPS0[-1])
+    return g0, min(g0, CACHE_G_MAX)
 
 
 def _const(spec, R: int, rho0, p0, c_f, inv_sigma0, transport_coeff,
@@ -156,9 +180,14 @@ def _const(spec, R: int, rho0, p0, c_f, inv_sigma0, transport_coeff,
     sigma = sigma_2d(h)
     soh = sigma / h
     nyp = _shapes(spec, R)[2]
+    cg0, cg = cache_groups(nyp * spec.K * spec.nx)
+    if cg0 not in CACHE_GROUPS0 or cg not in CACHE_GROUPS:
+        raise ValueError(f"lanes per anchor ({cg0}, {cg}) not in "
+                         f"{CACHE_GROUPS0} x {CACHE_GROUPS}")
     return _Const(
         nyp=nyp, K=spec.K, nx=spec.nx, R=R, kcut=kcut,
-        ncs=nyp * kcut * spec.nx, tx=max(1, 128 // spec.K), DL=spec.DL, h=h,
+        ncs=nyp * kcut * spec.nx, tx=max(1, 128 // spec.K), cg0=cg0, cg=cg,
+        DL=spec.DL, h=h,
         cut2=spec.cutoff * spec.cutoff, sigma=sigma, sig025=sigma * 0.25,
         c225soh=2.25 * soh, c3soh=3.0 * soh, cm075soh=-0.75 * soh,
         rho0=rho0, p0=p0, c_f=c_f, inv_sigma0=inv_sigma0,
@@ -262,22 +291,31 @@ def _form(form: str, k_cut: int, K: int):
     if kform == 1 and not 1 <= kcut <= K:
         raise ValueError(f"geometry-cache form {form!r} needs 1 <= k_cut "
                          f"<= K={K}, got {k_cut}")
+    if kform == 1 and 3 * K > 32 * CACHE_MASK_WORDS:
+        raise ValueError(f"geometry-cache form {form!r}: a window row of "
+                         f"3K = {3 * K} candidates exceeds the kernel's "
+                         f"{32 * CACHE_MASK_WORDS}-bit mask (K <= 42)")
     return kform, kcut
 
 
 def _cache_bufs(spec, R: int, kcut: int, dev):
     """The geometry cache: 9K entries for each of the nyp*kcut*nx cached
-    anchor slots, structure of arrays with the slot fastest. Returns the
-    pointer struct and the tensors that back it (kept alive by the
-    caller until the launches are enqueued)."""
+    anchor slots (rounded up to whole tiles of 32 slots), structure of
+    arrays in tiles of T = 32/G slots (G: ``cache_groups``), entry-major
+    in a tile (entry e of cached slot s at (s // T)*T*9K + e*T + s % T),
+    the count per slot and the four halo'd float4 record cores that
+    sweeps 1-3 read their candidates from. Returns the pointer struct and the tensors that back
+    it (kept alive by the caller until the launches are enqueued)."""
     if kcut == 0:
         return _CacheBufs(), ()
     ncs = _shapes(spec, R)[2] * kcut * spec.nx
-    n_e = 9 * spec.K * ncs
+    n_e = 9 * spec.K * -(-ncs // 32) * 32
     keep = (torch.empty(n_e, dtype=torch.int32, device=dev),
             *(torch.empty(n_e, dtype=torch.float32, device=dev)
               for _ in range(5)),
-            torch.empty(ncs, dtype=torch.int32, device=dev))
+            torch.empty(ncs, dtype=torch.int32, device=dev),
+            torch.empty(4 * 4 * math.prod(_shapes(spec, R)[0]),
+                        dtype=torch.float32, device=dev))
     return _CacheBufs(*(t.data_ptr() for t in keep)), keep
 
 
@@ -324,15 +362,11 @@ class StepBuffers:
     on which sweep ranges and the no-op launch again and again: the probes
     time each sweep and each prefix over a completed step's buffers.
 
-    Sweeps 1-3 read what the earlier sweeps left in the buffers, so a
-    sweep relaunched over a completed step writes what the step wrote, bit
-    for bit, with one exception: in the cache form sweep 1 folds Vol_j into
-    the list in place (csrc/fused_cell.cu ``kgc_each``), so it writes what
-    it reads. ``rewrites`` names such sweeps; take a ``snapshot`` of the
-    list after sweep 0 and ``restore`` it before each relaunch of sweep 1.
-    A cache-form range that would read the list in the wrong state raises:
-    sweep 1 needs the list as sweep 0 wrote it, sweeps 2-3 as sweep 1
-    folded it."""
+    Sweeps 1-3 read what the earlier sweeps left in the buffers and no
+    sweep writes what it reads, so a sweep relaunched over a completed
+    step writes what the step wrote, bit for bit. In the cache form sweeps
+    1-3 read the list that sweep 0 writes: a range that starts later on
+    buffers where sweep 0 has not run raises."""
 
     def __init__(self, spec, R: int, lay, xH, yH, vxH, vyH, drP, dt,
                  scalars, form: str = "none", k_cut: int = 0):
@@ -343,9 +377,7 @@ class StepBuffers:
         self._inputs = (xH, yH, vxH, vyH, drP, lay)
         self.dev = xH.device
         self.key = launch_key("fused_step_sweeps", form)
-        self.rewrites = (1,) if self._kform == 1 else ()
-        self._listed = self._folded = False   # sweep 0 / 1 left the list
-        self._saved = None
+        self._listed = self._kform != 1   # the list is there to read
 
     def _call(self, what: str, fn, *args):
         with torch.cuda.device(self.dev):
@@ -356,54 +388,32 @@ class StepBuffers:
     def sweeps(self, first: int = 0, count: int = 4) -> None:
         """Launch sweeps ``first .. first+count-1`` (sph_step_sweeps)."""
         check_sweep_range(first, count)
-        if self.rewrites and first > 0:
-            if not self._listed:
-                raise ValueError("the cache form's sweeps 1-3 read the "
-                                 "list that sweep 0 writes: launch sweep 0 "
-                                 "on these buffers first")
-            if first == 1 and self._folded:
-                raise RuntimeError("cache-form sweep 1 folds Vol_j into the "
-                                   "list in place: restore() the list "
-                                   "before launching it again")
-            if first > 1 and not self._folded:
-                raise RuntimeError("cache-form sweeps 2-3 read the list "
-                                   "that sweep 1 folds: launch sweep 1 "
-                                   "first")
+        if first > 0 and not self._listed:
+            raise ValueError("the cache form's sweeps 1-3 read the list "
+                             "that sweep 0 writes: launch sweep 0 on these "
+                             "buffers first")
         self._call("sph_step_sweeps", self._lib.sph_step_sweeps,
                    ctypes.addressof(self._cache), self._kform, first, count)
         LAUNCHES[self.key] += 1
-        if self.rewrites:
-            if first == 0:
-                self._listed, self._folded = True, False
-            if first <= 1 < first + count:
-                self._folded = True
+        self._listed = True
 
-    def snapshot(self) -> int:
-        """Keep the list as sweep 0 wrote it (cache form): the entries in
-        use of c1 and cw. Entry e of cached slot s sits at e*ncs + s, so
-        the first max(n)*ncs entries hold every slot's n[s]; the rest of
-        the 9K capacity stays out of the copy (and out of L2). Sweep 0
-        writes n only for visited slots (rank k < occ of the row's group),
-        so the max is taken over those. Returns the bytes that each
-        ``restore`` copies."""
-        if not self._listed or self._folded:
-            raise RuntimeError("snapshot() takes the list between sweep 0 "
-                               "and sweep 1")
+    def cache_list(self) -> dict:
+        """The cache form's list as sweep 0 left it, untiled (copies):
+        ``idx``, ``ex``, ``ey``, ``r``, ``c1`` (dw*m1), ``cw`` (dw*mw) as
+        (ncs, 9K), entry e of cached slot s valid for e < ``n[s]``, and
+        ``n`` (ncs,); cached slot s = (iy*k_cut + k)*nx + ix."""
+        if self._kform != 1:
+            raise ValueError("only the geometry-cache form has a list")
         c = self._c
-        n = self._keep[6].view(c.nyp, c.kcut, c.nx)
-        occ = self._inputs[5].occ.reshape(-1).repeat_interleave(c.R)
-        vis = torch.arange(c.kcut, device=self.dev)[None, :] < occ[:, None]
-        used = int(torch.where(vis[:, :, None], n, 0).max()) * n.numel()
-        self._saved = [t[:used].clone() for t in self._keep[4:6]]  # c1, cw
-        return 2 * used * 4
+        T = 32 // c.cg
 
-    def restore(self) -> None:
-        """Put back the list of the last ``snapshot`` (cache form)."""
-        if self._saved is None:
-            raise RuntimeError("restore() needs a snapshot()")
-        for t, v in zip(self._keep[4:6], self._saved):
-            t[:v.numel()].copy_(v)
-        self._folded = False
+        def untile(v):
+            return v.view(-1, 9 * c.K, T).transpose(1, 2).reshape(
+                -1, 9 * c.K)[:c.ncs]
+
+        t = [untile(v) for v in self._keep[:6]]
+        return dict(zip(("idx", "ex", "ey", "r", "c1", "cw"), t),
+                    n=self._keep[6])
 
     def noop(self) -> None:
         """Launch the no-op on these buffers (sph_noop): it overwrites
@@ -443,11 +453,13 @@ def chunk(spec, R: int, lay, xH, yH, vxH, vyH, drP, t_local, t_comp,
           interval_len, n_sub, dt_visc, dt_body, scalars, form: str = "none",
           k_cut: int = 0):
     """Up to ``n_sub`` steps (the JAX _chunk_kernel) in ``form`` with no
-    host sync: per step a control launch (v_max, dt, active flag, Kahan
-    clock on device), four sweeps and a halo refresh. The inputs are
-    copied into the working state first, so they stay intact. Returns
-    ((xH, yH, vxH, vyH, drP) working state, output cores, steps, t,
-    t_comp), the last three as 0-dim device tensors."""
+    host sync: a v_max reduction over the input velocity cores, then per
+    step a control launch (dt, active flag, Kahan clock on device), four
+    sweeps and a halo refresh that also takes v_max for the next step. The
+    inputs are copied into the working state first, so they stay intact.
+    Returns ((xH, yH, vxH, vyH, drP) working state, output cores, steps,
+    t, t_comp, v_max^2 over the final working velocity cores), the last
+    four as 0-dim device tensors."""
     (rho0, p0, c_f, inv_sigma0, transport_coeff, g, mu, wf) = scalars
     kform, kcut = _form(form, k_cut, spec.K)
     lib = _load()
@@ -459,16 +471,19 @@ def chunk(spec, R: int, lay, xH, yH, vxH, vyH, drP, t_local, t_comp,
                           float(dt_visc), float(dt_body)],
                          dtype=torch.float32).to(dev)
     steps = torch.tensor([0, int(n_sub)], dtype=torch.int32).to(dev)
+    vmax2 = torch.zeros(1, dtype=torch.int32, device=dev)
     cache, keep = _cache_bufs(spec, R, kcut, dev)
     c = _const(spec, R, rho0, p0, c_f, inv_sigma0, transport_coeff, kcut)
     with torch.cuda.device(dev):
         _raise_on(lib.sph_chunk(ctypes.addressof(c), ctypes.addressof(bufs),
                                 ctypes.addressof(cache), kform,
                                 clock.data_ptr(), steps.data_ptr(),
-                                int(n_sub), _stream(dev)), "sph_chunk")
+                                vmax2.data_ptr(), int(n_sub), _stream(dev)),
+                  "sph_chunk")
     del keep  # a later allocation on this stream runs after the launches
     LAUNCHES[launch_key("fused_chunk", form)] += 1
-    return work, _outputs(out), steps[0], clock[0], clock[1]
+    return (work, _outputs(out), steps[0], clock[0], clock[1],
+            vmax2.view(torch.float32)[0])
 
 
 def wall_shear(spec, R: int, lay, xH, yH, vxH, volH, b11H, b12H, b21H,

@@ -26,10 +26,9 @@ With CUDA events around ``--n`` launches enqueued without a sync, after a
 warm-up, best of three: the wrapper calls as a caller sees them, the
 launches on persistent buffers queued behind a spin kernel, so that they
 measure device time and not the host's enqueue rate (about 20 us per
-wrapper call). The cache form's sweep 1 writes what it reads (it folds
-Vol_j into the list), so each of its relaunches starts from the list as
-sweep 0 left it (the entries in use put back) and has its own event pair,
-the restore outside it. Each kernel time is printed beside its bound
+wrapper call). Each sweep's time inside the step, the marginal of its
+prefix (``sweep{s}_in_step``), stands beside its relaunched time. Each
+kernel time is printed beside its bound
 (``utils/roofline.py``), its plain version's time on the same card tensors
 (``plain_*``, as called) and, for the no-op and the expand, the one
 PyTorch call that computes the same (``library_*``). The last line is one
@@ -61,7 +60,7 @@ from .stepper import PallasCellEngine, initial_state
 from .utils import roofline
 
 # spin cycles queued ahead per timed launch: about 100 us at the H100's
-# 1.98 GHz, above the host's cost of one relaunch with its restore
+# 1.98 GHz, above the host's cost of one relaunch
 SPIN_PER_LAUNCH = 2e5
 
 
@@ -127,34 +126,26 @@ def occupancy(spec, state) -> dict:
                 cell_max=counts.max(axis=1).tolist(), kinds=kinds)
 
 
-def event_ms(fn, n: int, before=None, queued: bool = False) -> float:
+def event_ms(fn, n: int, queued: bool = False) -> float:
     """ms per launch: CUDA events around ``n`` launches enqueued without a
-    sync, after a warm-up, best of three. With ``before``, each launch has
-    its own event pair and ``before`` runs outside it. ``queued``: the
-    launches wait behind a spin kernel long enough for the host to enqueue
-    them all, so the card never waits for the host and the events measure
-    device time; without it a call is timed as its caller sees it, host
-    cost included."""
-    if before is not None:
-        before()
+    sync, after a warm-up, best of three. ``queued``: the launches wait
+    behind a spin kernel long enough for the host to enqueue them all, so
+    the card never waits for the host and the events measure device time;
+    without it a call is timed as its caller sees it, host cost
+    included."""
     fn()
     torch.cuda.synchronize()
     best = math.inf
     for _ in range(3):
         if queued:
             torch.cuda._sleep(int(n * SPIN_PER_LAUNCH))
-        pairs = []
-        for i in range(n if before is not None else 1):
-            if before is not None:
-                before()
-            e = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
-            e[0].record()
-            for _ in range(1 if before is not None else n):
-                fn()
-            e[1].record()
-            pairs.append(e)
+        e = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+        e[0].record()
+        for _ in range(n):
+            fn()
+        e[1].record()
         torch.cuda.synchronize()
-        best = min(best, sum(a.elapsed_time(b) for a, b in pairs) / n)
+        best = min(best, e[0].elapsed_time(e[1]) / n)
     return best
 
 
@@ -172,21 +163,16 @@ def _time_cuda(spec, lay, cores, dt, sc, form, n: int) -> dict:
     them, the launches on persistent buffers as device time; beside them
     the plain versions on the same card tensors, as called, and the one
     PyTorch call that computes the same function where there is one
-    (``library_*``: the no-op's row copy, the expand's ``repeat``).
-    Returns (ms, bytes each restore of the cache form's list copies)."""
+    (``library_*``: the no-op's row copy, the expand's ``repeat``)."""
     R = fc.plan(spec)[0]
     bufs = fcc.StepBuffers(spec, R, lay, *cores, dt, sc, *form)
     ms = {"step_call": event_ms(
         lambda: fc.fused_step_cores(spec, lay, *cores, dt, *sc), n),
         "step_bufs": event_ms(lambda: bufs.sweeps(0, 4), n, queued=True)}
-    bufs.sweeps(0, 1)
-    restore_bytes = bufs.snapshot() if bufs.rewrites else 0
-    bufs.sweeps(1, 3)
     full = probes.fused_step_sweeps_plain(spec, lay, *cores, dt, *sc)
     for s in range(4):
-        ms[f"sweep{s}"] = event_ms(
-            lambda s=s: bufs.sweeps(s, 1), n,
-            bufs.restore if s in bufs.rewrites else None, queued=True)
+        ms[f"sweep{s}"] = event_ms(lambda s=s: bufs.sweeps(s, 1), n,
+                                   queued=True)
         ms[f"plain_sweep{s}"] = event_ms(
             lambda s=s: probes.fused_step_sweeps_plain(
                 spec, lay, *cores, dt, *sc, first=s, count=1, prior=full),
@@ -194,10 +180,10 @@ def _time_cuda(spec, lay, cores, dt, sc, form, n: int) -> dict:
     for k in range(1, 5):
         ms[f"prefix{k}"] = event_ms(lambda k=k: bufs.sweeps(0, k), n,
                                    queued=True)
-    # a sweep that needs a restore runs alone with its own event pair
-    # behind the copy; its time inside the step is the prefix marginal
-    for s in bufs.rewrites:
-        ms[f"sweep{s}_in_step"] = ms[f"prefix{s + 1}"] - ms[f"prefix{s}"]
+    # each sweep's time inside the step: the marginal of its prefix
+    for s in range(4):
+        ms[f"sweep{s}_in_step"] = (ms[f"prefix{s + 1}"]
+                                   - ms.get(f"prefix{s}", 0.0))
     ms["noop_call"] = event_ms(
         lambda: probes.fused_noop(spec, lay, *cores, dt, *sc), n)
     ms["noop_bufs"] = event_ms(bufs.noop, n, queued=True)
@@ -213,7 +199,7 @@ def _time_cuda(spec, lay, cores, dt, sc, form, n: int) -> dict:
         lambda: probes.expand_onehot_plain(v, spec.K), n)
     ms["library_expand"] = event_ms(lambda: v.repeat(1, spec.K), n,
                                     queued=True)
-    return ms, restore_bytes
+    return ms
 
 
 def _time_cpu(spec, lay, cores, dt, sc, n: int) -> dict:
@@ -308,10 +294,8 @@ def main(argv=None) -> int:
              fc.make_core(spec, lay.pidx, state.vy),
              fc.make_plain(spec, lay.pidx, state.drho_dt))
     dt = 1e-4
-    restore_bytes = 0
     if device.type == "cuda":
-        ms, restore_bytes = _time_cuda(spec, lay, cores, dt, sc, form,
-                                       args.n)
+        ms = _time_cuda(spec, lay, cores, dt, sc, form, args.n)
         pre = ""
     else:
         ms = _time_cpu(spec, lay, cores, dt, sc, args.n)
@@ -340,9 +324,7 @@ def main(argv=None) -> int:
               + ("" if pre else f"; plain {ms[f'plain_sweep{s}']:.4f}")
               + ")")
     ms[pre + "sweeps_sum"] = total
-    print(f"sum of single sweeps: {total:.4f}"
-          + (f"; each restore of the cache list copies "
-             f"{restore_bytes / 2**20:.1f} MiB" if restore_bytes else ""))
+    print(f"sum of single sweeps: {total:.4f}")
     prev = 0.0
     for k in range(1, 5):
         v = ms[f"{pre}prefix{k}"]
@@ -370,7 +352,9 @@ def main(argv=None) -> int:
                                           "max")},
         "pairs": n, "bound_ms": bounds,
         "bound_by": {k: v[1] for k, v in both.items()},
-        "restore_bytes": restore_bytes, "ms": ms}}))
+        # no sweep writes what it reads, so no relaunch restores anything;
+        # the key stays for comparisons with older probe outputs
+        "restore_bytes": 0, "ms": ms}}))
     return 0
 
 
