@@ -18,8 +18,13 @@ Phases, each of which exits non-zero on failure before the last line:
    reaches the interval end mid-chunk, the wall shear; (b) the validated
    dp=0.01 channel with the shipping knobs (skin 0.3dp, rebuild_every 128,
    K=14, nx=100): the fused step at both dts, a 16-step chunk, the wall
-   shear. The rows kernels are also held to the recompute kernels, which
-   they should equal bit for bit;
+   shear (its per-slot partials too, and two launches bit-equal). The rows
+   kernels are also held to the recompute kernels, which they should equal
+   bit for bit; then the cache form at K=48 on a small dense grid (three
+   cell columns of the tiny box at dp=0.025, up to 47 particles a cell, so
+   a window row of 144 candidates spans two pieces of the kernel's mask):
+   "full" and what "auto" picks there, the step at both dts (pair count
+   exact) and a 16-step chunk against the plain twin;
 2b. the probes' kernels at both grids in every form: each sweep prefix
    of the step (``probes.fused_step_sweeps``) equals the kernel's full step
    bit for bit on the cores it writes, leaves the others zero and holds
@@ -27,13 +32,16 @@ Phases, each of which exits non-zero on failure before the last line:
    (``StepBuffers``) leaves every core bit-equal;
    the no-op writes x's first halo row into vol's and nothing else; the
    one-hot expand equals ``repeat`` bit for bit at the JAX test's shape and
-   at (b)'s window. Then the probe entry point (``python -m
+   at (b)'s window, and on rows that hold -0, inf and NaN it equals what
+   the product is (``probes.expand_onehot_values``; the plain product,
+   cuBLAS here, held to the kernel bit for bit on the finite rows and
+   recorded on the others). Then the probe entry point (``python -m
    sph_poiseuille_flow_torch.probe``) runs at (b) with a short warm-up in
    the recompute, cache and rows forms, with the launch counts reset
    before each run and its kernels nonzero after it; its JSON gives the
    sweeps', the no-op's and the expand's times, plain times and bounds in
    the kernels line;
-2c. the geometry-cache form at both grids: the list its sweep 0 writes
+2c. the geometry-cache form at both grids and at K=48: the list its sweep 0 writes
    (cache and partial) against the plain list (``fused_cell.
    cache_list_plain``: n and idx exactly, ex, ey, r, dw*m1, dw*mw to
    TOL_STEP); two chunk launches on the same inputs bit-equal; and the
@@ -47,13 +55,23 @@ Phases, each of which exits non-zero on failure before the last line:
    raises on overflow, on an unrecoverable drift-guard trip and on
    non-finite velocities) with v_max and tau rising; (c) a short
    ``config.ini`` run with ``--step-log-every``, whose log rows are
-   printed. The launch counts are reset to 0 before each run and each
-   kernel of the form the run selects must be nonzero after it;
+   printed; (d) a short ``config.ini`` run with ``--dtype float64``,
+   which "auto" sends to the cell-layout engine of plain torch ops (no
+   kernel may launch). The launch counts are reset to 0 before each run
+   and each kernel of the form the run selects must be nonzero after it;
+3b. the cell-layout engine (``CellEngine``) on the card over 0.05 s of
+   ``config.ini``: in float32 against the fused engine (the same steps,
+   every field within the tolerances of tests/test_pallas.py:63-72), in
+   float64 with clean flags and within 1e-3 of the float32 run in each
+   field's own unit (a sanity check, not a parity gate);
 4. time each kernel and form against its plain version with CUDA events
    at the (b) shapes and at dp=0.025, and the cache chunk at each lane
    group size of its sweep 0 and of its sweeps 1-3
    (``fused_cell_cuda.CACHE_GROUPS0``, ``CACHE_GROUPS``; the shipped pick
-   is ``fused_cell_cuda.cache_groups``), with the sweeps each size runs.
+   is ``fused_cell_cuda.cache_groups``), with the sweeps each size runs;
+   the wall shear through its wrapper and its kernel alone on its
+   persistent buffers; and the no-op on a step's buffers against a row
+   ``copy_``, in turns, five times each, with their spread.
 
 Prints the card's name and power limit, a ``{"kernels": [...]}`` line
 (each kernel with its time, its plain version's and the least time the
@@ -85,6 +103,13 @@ DP001 = dict(DL=3.0, DH=1.0, dp=0.01, rho0=1.0, mu=0.1, U_bulk=0.666667,
              rebuild_every=128, cell_capacity=14, lane_pack_nx=100)
 # the dp=0.025 shipping grid (4,800 fluid particles, nx=40), for timing
 DP0025 = dict(DP001, dp=0.025, neighbor_skin=0.3 * 0.025, lane_pack_nx=40)
+# a dense small grid at K=48: the tiny box of the JAX package's Pallas
+# tests at dp=0.025 with three cell columns, up to 47 particles a cell
+K48 = dict(DL=1.0, DH=0.5, dp=0.025, rho0=1.0, mu=0.1, U_bulk=0.666667,
+           c_f=15.0, end_time=0.5, output_interval=0.25, sort_interval=100,
+           restart_from_file=False, cell_capacity=48, lane_pack_nx=3)
+# the forms held at K=48: the cache over every rank, and what "auto" picks
+K48_FORMS = (("full", dict(geom_cache="full")), ("cache", {}))
 
 # The forms of the step and the chunk, as (label, spec knobs): "cache" is
 # what "auto" picks at the grid ("full" at (a) and dp=0.025, "ring" at
@@ -224,7 +249,7 @@ def _form_spec(spec, knobs):
 # case ends its interval mid-chunk (dt is about 1e-3 at dp=0.05), so the
 # remainder clamp and the active flag are held too; (b) calls 16 steps.
 CHUNKS = {"a": ((1, 1.0, 1), (16, 5.5e-3, None)),
-          "b": ((16, 1.0, 16),)}
+          "b": ((16, 1.0, 16),), "k48": ((16, 1.0, 16),)}
 
 
 def phase_build() -> None:
@@ -304,6 +329,7 @@ def _check_form(device, check: Check, label: str, cfg, spec, lay, args,
 def phase_kernels(device, check: Check, label: str, cfg) -> dict:
     import torch
     from sph_poiseuille_flow_torch.ops import fused_cell as fc
+    from sph_poiseuille_flow_torch.ops import fused_cell_cuda as fcc
     from sph_poiseuille_flow_torch.ops.integration import verlet_dt
 
     scene, spec, lay, c, (vx, vy) = _jittered_case(cfg, device)
@@ -351,7 +377,61 @@ def phase_kernels(device, check: Check, label: str, cfg) -> dict:
                    rv.reshape(1), TOL_STEP)
     _say(f"  tau_bottom ({label})={float(got[0]):.6f} "
          f"plain={float(ref[0]):.6f}")
+    # the per-slot partials, slot by slot, and two launches bit-equal
+    tbt = fcc.wall_shear(spec, R, lay, *sh).clone()
+    again = fcc.wall_shear(spec, R, lay, *sh).clone()
+    ref = fc.fused_wall_shear_slots_plain(spec, lay, *sh)
+    check.core("fused_wall_shear", f"{label}:slots", tbt, ref, TOL_STEP)
+    if not torch.equal(tbt, again):
+        raise AssertionError(f"fused_wall_shear ({label}): two launches "
+                             "differ")
+    # the row list against the JAX kernel's window over every row: the
+    # rows left out hold exactly +0 there, the listed rows match the kernel
+    full = fc.fused_wall_shear_slots_plain(spec, lay, *sh, every_row=True)
+    rows = lay.shear_rows.to(torch.int64)
+    out_rows = torch.ones(nyp, dtype=torch.bool, device=device)
+    out_rows[rows] = False
+    if full[:, out_rows].count_nonzero():
+        raise AssertionError(f"fused_wall_shear ({label}): a row left out "
+                             "of the row list has a nonzero partial")
+    check.core("fused_wall_shear", f"{label}:slots_every_row",
+               tbt[:, rows], full[:, rows], TOL_STEP)
+    _say(f"  fused_wall_shear ({label}): {rows.numel()} of {nyp} rows "
+         f"launched, {int((tbt != 0).sum())} nonzero partials "
+         f"({int((full != 0).sum())} over every row); two launches "
+         "bit-equal")
     return dict(cfg=cfg, spec=spec, lay=lay, args=args, sc=sc, dt=dt, sh=sh)
+
+
+def phase_k48(device, check: Check) -> dict:
+    """The cache form at K=48 on the dense grid: the step at both dts and
+    a 16-step chunk against the plain twin in the forms of K48_FORMS."""
+    import torch
+    from sph_poiseuille_flow_torch.config import derive_config
+    from sph_poiseuille_flow_torch.ops import fused_cell as fc
+    from sph_poiseuille_flow_torch.ops.integration import verlet_dt
+
+    cfg = derive_config(**K48)
+    scene, spec, lay, c, (vx, vy) = _jittered_case(cfg, device)
+    occ = int(lay.occ.max())
+    _say(f"kernels (k48): dp={cfg.dp} grid nx={spec.nx} ny={spec.ny} "
+         f"K={spec.K}, max occupancy {occ}, {scene.n_total} particles")
+    if occ <= 32:
+        raise AssertionError(f"k48: occupancy {occ} leaves the second piece "
+                             "of a window row empty")
+    nf = scene.n_fluid
+    dt = verlet_dt(vx[:nf], vy[:nf], cfg.c_f, cfg.h, cfg.nu, cfg.gravity_g,
+                   1.0)
+    args = (c["xH"], c["yH"], c["vxH"], c["vyH"], c["drP"])
+    for flabel, knobs in K48_FORMS:
+        fspec = _form_spec(spec, knobs)
+        if fc.chunk_form(fspec, torch.float32)[0] not in ("full", "ring",
+                                                          "partial"):
+            raise AssertionError(f"k48 ({flabel}): not a cache form")
+        _check_form(device, check, "k48", cfg, fspec, lay, args, dt, flabel)
+    sc = (cfg.rho0, cfg.p0, cfg.c_f, cfg.inv_sigma0, cfg.transport_coeff,
+          cfg.gravity_g, cfg.mu, cfg.wall_visc_factor)
+    return dict(cfg=cfg, spec=spec, lay=lay, args=args, sc=sc, dt=dt)
 
 
 def _equal(what: str, got: dict, ref: dict, keys) -> None:
@@ -432,7 +512,8 @@ def phase_probes(device, check: Check, label: str, k: dict) -> None:
         phase_expand(device, check, spec)
 
 
-def phase_cache(device, check: Check, label: str, k: dict) -> None:
+def phase_cache(device, check: Check, label: str, k: dict,
+                forms=FORMS[1:3]) -> None:
     """The geometry-cache form at one grid: the list sweep 0 writes, in
     the cache and the partial form, against the plain list (n and idx
     exactly, the floats to TOL_STEP); the grid's last chunk case launched
@@ -447,7 +528,7 @@ def phase_cache(device, check: Check, label: str, k: dict) -> None:
     cfg, spec, lay, args, sc, dt = (k[n] for n in ("cfg", "spec", "lay",
                                                    "args", "sc", "dt"))
     R = fc.plan(spec)[0]
-    for flabel, knobs in FORMS[1:3]:
+    for flabel, knobs in forms:
         fspec = _form_spec(spec, knobs)
         form = fc.step_form(fspec, torch.float32)
         b = fcc.StepBuffers(fspec, R, lay, *args, dt, sc, *form)
@@ -536,7 +617,57 @@ def phase_expand(device, check: Check, spec) -> None:
         _say(f"expand_onehot ({rows}, {bx}) x{K}: bit-equal to repeat; "
              f"torch.matmul under TF32 gets {n_tf32} of {want.numel()} "
              "elements wrong (a record)")
+        _expand_special(v, K)
     check.max_abs["expand_onehot"] = 0.0
+
+
+def _expand_special(v, K: int) -> None:
+    """The expand on rows of ``v`` made to hold -0 (one row all negative
+    with a -0, one with a -0 among positives), an inf beside a NaN, a lone
+    -inf and a lone NaN: bit for bit what the product is
+    (``probes.expand_onehot_values``: NaN where it is NaN, the bits
+    elsewhere); the plain product (cuBLAS) held to the kernel bit for bit
+    on the finite rows without a -0, and where it differs on the others,
+    recorded."""
+    import torch
+    from sph_poiseuille_flow_torch.ops import probes
+
+    v = v.clone()
+    bx = v.shape[1]
+    v[1] = -v[1].abs()
+    v[1, 0] = -0.0
+    v[2, bx // 2] = -0.0
+    v[3, 1] = float("inf")
+    v[3, 2 % bx] = float("nan")
+    v[4, 0] = -float("inf")
+    v[5, bx - 1] = float("nan")
+    got = probes.expand_onehot(v, K)
+    ref = probes.expand_onehot_plain(v, K)
+    want = probes.expand_onehot_values(v, K)
+    torch.cuda.synchronize()
+
+    def same(a, b):
+        nan = torch.isnan(b)
+        return (torch.equal(torch.isnan(a), nan)
+                and torch.equal(a[~nan].view(torch.int32),
+                                b[~nan].view(torch.int32)))
+
+    if not same(got, want):
+        raise AssertionError(f"expand_onehot ({v.shape[0]}, {bx}) x{K}: "
+                             "not the product's values on -0/inf/NaN rows")
+    # finite rows without a -0: the rows a sum's order cannot change
+    negz = ((v == 0) & torch.signbit(v)).any(dim=1)
+    finite = torch.isfinite(v).all(dim=1) & ~negz
+    if not torch.equal(got[finite].view(torch.int32),
+                       ref[finite].view(torch.int32)):
+        raise AssertionError(f"expand_onehot ({v.shape[0]}, {bx}) x{K}: "
+                             "finite rows differ from the plain product")
+    rows = [r for r in range(v.shape[0]) if not same(ref[r:r + 1],
+                                                      want[r:r + 1])]
+    _say(f"expand_onehot ({v.shape[0]}, {bx}) x{K} with -0/inf/NaN rows: "
+         f"the product's values bit for bit (-0 -> +0, NaN where a "
+         f"non-finite entry meets); the plain product (cuBLAS) differs from "
+         f"them in rows {rows} (a record)")
 
 
 # the probe runs at (b): (name, flags, the LAUNCHES key of its sweeps)
@@ -758,7 +889,99 @@ def phase_main() -> dict:
                        for i, ln in enumerate(lines) if pat.match(ln))):
         raise AssertionError(f"(c) step log rows malformed: {rows}")
     _launched("c", counts["c"], {"fused_step_cache", "fused_wall_shear"})
+
+    # (d) float64: "auto" sends it to the cell-layout engine, plain torch
+    # ops on the card, so no kernel of the port launches
+    fcc.reset_launch_counts()
+    rd = _run_cli("d_float64", None,
+                  ["--dtype", "float64", "--set", "simulation.end_time=0.1",
+                   "--set", "simulation.output_interval=0.05"])
+    counts["d"] = dict(fcc.LAUNCHES)
+    runs["d"] = rd
+    st = rd["final_state"]
+    import torch
+    _say(f"main (d) config.ini float64: steps={rd['step']} t={rd['t']:.3f} "
+         f"tau_bottom={rd['tau_bottom']:.6f} dtype={st.x.dtype} "
+         f"device={st.x.device} psteps/s={rd['particle_steps_per_sec']:.4e} "
+         f"host_syncs={rd['host_syncs']} launches={counts['d']}")
+    if (st.x.dtype != torch.float64 or st.x.device.type != "cuda"
+            or not all(bool(torch.isfinite(getattr(st, f)).all())
+                       for f in st._fields)
+            or not math.isfinite(rd["tau_bottom"]) or rd["step"] <= 0):
+        raise AssertionError("(d) float64: not a finite float64 run on the "
+                             "card")
+    _launched("d", counts["d"], set())
     return dict(runs=runs, counts=counts)
+
+
+def phase_cellgrid(device) -> dict:
+    """The cell-layout engine on the card over 0.05 s of config.ini: float32
+    against the fused engine ("auto"), float64 against float32."""
+    import numpy as np
+    import torch
+    from sph_poiseuille_flow_torch.config import load_config
+    from sph_poiseuille_flow_torch.models.poiseuille import build_scene
+    from sph_poiseuille_flow_torch.stepper import (CellEngine,
+                                                   PallasCellEngine,
+                                                   initial_state,
+                                                   make_engine)
+
+    base = load_config(os.path.join(ROOT, "config.ini"))
+    scene = build_scene(base)
+    runs = {}
+    for name, kw, kind in (
+            ("fused", dict(engine="auto"), PallasCellEngine),
+            ("cell32", dict(engine="cellgrid"), CellEngine),
+            ("cell64", dict(engine="auto", dtype="float64"), CellEngine)):
+        cfg = dataclasses.replace(base, **kw)
+        eng = make_engine(cfg, scene, device)
+        if type(eng) is not kind:
+            raise AssertionError(f"cellgrid ({name}): {type(eng).__name__}")
+        t0 = time.perf_counter()
+        s, lay, g, ovf = eng.init(initial_state(cfg, scene, device))
+        r = eng.run_interval(s, lay, g, np.dtype(cfg.dtype).type(0.05))
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        runs[name] = r
+        finite = all(bool(torch.isfinite(getattr(r.state, f)).all())
+                     for f in r.state._fields)
+        _say(f"cellgrid ({name}) {type(eng).__name__} {cfg.dtype}: "
+             f"{r.n_steps} steps in {wall:.2f} s, v_max={float(r.v_max):.9f} "
+             f"tau_bottom={float(r.tau_bottom):.9f} "
+             f"tau_top={float(r.tau_top):.9f}")
+        if (bool(ovf) or bool(r.overflow) or r.skin_guard or not finite
+                or r.state.x.device != torch.device(device)):
+            raise AssertionError(f"cellgrid ({name}): flags or state not "
+                                 "clean")
+    fused, c32, c64 = runs["fused"], runs["cell32"], runs["cell64"]
+    if not fused.n_steps == c32.n_steps == c64.n_steps:
+        raise AssertionError(f"cellgrid: steps {fused.n_steps} (fused) / "
+                             f"{c32.n_steps} (f32) / {c64.n_steps} (f64)")
+    # tests/test_pallas.py:63-72, in particle order
+    tols = {"p": (1e-2, 2.5e-2), "drho_dt": (5e-3, 5e-3)}
+    cfg = base
+    units = {"p": cfg.p0, "drho_dt": cfg.rho0 * cfg.c_f / cfg.h}
+    worst32 = worst64 = 0.0
+    for f in fused.state._fields:
+        a = getattr(fused.state, f).double()
+        b = getattr(c32.state, f).double()
+        rtol, atol = tols.get(f, (2e-3, 5e-4))
+        frac = float(((b - a).abs() / (atol + rtol * a.abs())).max())
+        worst32 = max(worst32, frac)
+        if frac > 1.0:
+            raise AssertionError(f"cellgrid f32 vs fused: {f} off by "
+                                 f"{frac:.2f} of its tolerance")
+        d = getattr(c64.state, f)
+        scale = max(units.get(f, 1.0), float(b.abs().max()))
+        rel = float((d - b).abs().max()) / scale
+        worst64 = max(worst64, rel)
+        if not rel <= 1e-3:
+            raise AssertionError(f"cellgrid f64 vs f32: {f} differs by "
+                                 f"{rel:.2e} of its scale")
+    _say(f"cellgrid: f32 vs fused {fused.n_steps} steps each, worst field at "
+         f"{worst32:.3f} of the tests/test_pallas.py tolerance; f64 vs f32 "
+         f"worst {worst64:.2e} of the field's scale (bound 1e-3)")
+    return dict(worst32=worst32, worst64=worst64, steps=c32.n_steps)
 
 
 def _time(fn, reps: int) -> float:
@@ -881,9 +1104,36 @@ def phase_timing(device, kern_b: dict) -> dict:
                                                        *sh), 20)
     n = roofline.pair_counts(k["spec"], k["lay"], sh[0], sh[1])
     bound = roofline.bound("shear", k["spec"], n)
-    _say(f"timing (b) fused_wall_shear  kernel {k1:.4f}/{k2:.4f} ms, plain "
-         f"{p1:.4f}/{p2:.4f} ms, bound {bound[0]:.4f} ms ({bound[1]})")
+    # the kernel alone: relaunched on the layout's partials, queued behind
+    # a spin kernel (device time)
+    R = fc.plan(k["spec"])[0]
+    alone = event_ms(lambda: fcc.wall_shear(k["spec"], R, k["lay"], *sh),
+                     200, queued=True)
+    _say(f"timing (b) fused_wall_shear  kernel {k1:.4f}/{k2:.4f} ms with its "
+         f"wrapper and sums, {alone:.5f} ms alone on its buffers "
+         f"({k['lay'].shear_rows.numel()} rows), plain {p1:.4f}/{p2:.4f} "
+         f"ms, bound {bound[0]:.6f} ms ({bound[1]})")
     out[("b", "fused_wall_shear")] = (min(k1, k2), min(p1, p2)) + bound
+    out[("b", "fused_wall_shear:alone")] = (alone, None) + bound
+
+    # the no-op on a step's buffers against a row copy_, in turns
+    spec, lay, args, sc, dt = (k[n] for n in ("spec", "lay", "args", "sc",
+                                              "dt"))
+    b = fcc.StepBuffers(spec, R, lay, *args, dt, sc, "none", 0)
+    b.sweeps(0, 4)
+    src = args[0][0, 0, :]
+    row = torch.zeros_like(src)
+    noop, copy = [], []
+    for _ in range(5):
+        noop.append(event_ms(b.noop, 200, queued=True))
+        copy.append(event_ms(lambda: row.copy_(src), 200, queued=True))
+    for name, v in (("sph_noop", noop), ("copy_", copy)):
+        v = sorted(v)
+        _say(f"timing (b) {name:9s} on buffers, 5 rounds in turns: min "
+             f"{v[0]:.5f} median {v[2]:.5f} max {v[4]:.5f} ms (spread "
+             f"{v[4] - v[0]:.5f})")
+    out[("b", "noop_rounds")] = tuple(noop)
+    out[("b", "copy_rounds")] = tuple(copy)
     return out
 
 
@@ -943,14 +1193,17 @@ def main() -> int:
         phase_build()
         kern = {label: phase_kernels(device, check, label, cfg)
                 for label, cfg in _grids()}
+        k48 = phase_k48(device, check)
         t1 = time.perf_counter()
         for label in kern:
             phase_probes(device, check, label, kern[label])
             phase_cache(device, check, label, kern[label])
+        phase_cache(device, check, "k48", k48, K48_FORMS)
         probe_counts, probe_res = phase_probe_cli()
         probe_times = _probe_times(probe_res)
         _say(f"probe phase done in {time.perf_counter() - t1:.1f} s")
         main_res = phase_main()
+        cell = phase_cellgrid(device)
         timing = phase_timing(device, kern["b"])
         _say(f"all phases done in {time.perf_counter() - t0:.1f} s")
     except Exception:
@@ -986,6 +1239,7 @@ def main() -> int:
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"timing": {f"{g}:{n}": v
                                  for (g, n), v in timing.items()}}))
+    print(json.dumps({"cellgrid": cell}))
     for run, r in main_res["runs"].items():
         print(json.dumps({"run": run, "L2_error": r["L2_error"],
                           "steps": r["step"], "t": r["t"],

@@ -17,14 +17,17 @@
 //   * _kernel_body_rows, the candidate-row-outer loop (:1081-1468, picked
 //     by use_rows :549-557) -> FORM_ROWS below.
 //   * _shear_kernel (fused_cell.py:1928-2010): wall-shear partials.
-//     -> sph_shear: per-slot partials, summed outside (torch.sum).
+//     -> sph_shear: per-slot partials over the cell rows next to the walls
+//        (the layout's row list), a lane group per anchor, summed outside
+//        (torch.sum).
 //   * the sweep-decomposition probes, which launch _step_kernel on a grid
 //     cut to a sweep range (experiments/profile_r3.py:115 call_sweeps,
 //     experiments/profile_fused.py:72 prefix_call) and a no-op body over
 //     the step's buffers (profile_r3.py:170).
 //     -> sph_step_sweeps (sph_step is its whole range) and sph_noop.
 //   * the one-hot lane-tiling body of tests/test_pallas.py:155-172.
-//     -> sph_expand.
+//     -> sph_expand: one block per row, the product's value from the row's
+//        count of non-finite entries, float4 stores.
 //
 // Layout (the JAX package's own): every field is a halo'd core
 // (nyp+2, K, nx+2) -- cell row, slot rank, cell column with wrapped x-halo
@@ -44,12 +47,13 @@
 //     :663-674, read :743-762, :845-861, :1005-1022): a group of lanes
 //     shares one anchor slot (Lanes, cache_sweep<S, G>): G0 = cg0 lanes
 //     (4-32) in sweep 0, G = cg lanes (1-32) in sweeps 1-3, the wrapper's
-//     CACHE_G0 and CACHE_G. Sweep 0 walks the window one row dy at a time in
-//     two passes: every lane tests its share of the row's 3K candidates for
-//     validity (x, y only), the group ORs the valid window positions into
-//     a bit mask, and the lanes then take the valid candidates in window
-//     order, computing their geometry and writing each to the slot's list:
-//     the candidate's halo'd-core index, ex, ey, r, dw*m1 and dw*mw (the
+//     CACHE_G0 and CACHE_G. Sweep 0 walks the window one row dy at a time
+//     (for K > 42, 3K > 128, in pieces of 128 window positions, in the
+//     kernels cache_sweep_wide), in two passes: every lane tests its share
+//     of the row's candidates for validity (x, y only), the group ORs the
+//     valid window positions into a bit mask, and the lanes then take the
+//     valid candidates in window order, computing their geometry and
+//     writing each to the slot's list: the candidate's halo'd-core index, ex, ey, r, dw*m1 and dw*mw (the
 //     five _N_CACHE values), in tiles of T = 32/G slots, entry-major in a
 //     tile (list_at), so that the 32 lanes of a warp of sweeps 1-3, which
 //     hold the T slots of one tile, read 32 consecutive words at each step
@@ -119,6 +123,8 @@
 #include <cuda_runtime.h>
 #include <math.h>
 
+#include <type_traits>
+
 extern "C" {
 
 struct SphConst {
@@ -163,8 +169,10 @@ struct ShearBufs {
   const float *x, *y, *isf, *vol, *vx, *b11, *b12, *b21, *b22, *wvx, *wbot,
       *wtop;
   const int* occ;
+  const int* rows;    // the cell rows whose window holds a wall slot
   float *tb, *tt;     // plain per-slot partial sums (bottom / top wall)
   float mu, wf;
+  int nrows;
 };
 
 }  // extern "C"
@@ -415,8 +423,9 @@ struct Tile {
 
 // FORM_CACHE: the anchor's window, walked by the group (geo_each below);
 // REC: sweep 0 of a cached slot, which writes the list (cs: the slot's
-// index among the cached slots)
-template <int G, bool REC>
+// index among the cached slots); WIDE: a window row holds more than 128
+// candidates (K > 42), walked in pieces
+template <int G, bool REC, bool WIDE>
 struct GWin : Lanes<G> {
   const SphConst& c;
   const StepBufs& b;
@@ -503,20 +512,25 @@ __device__ __forceinline__ void geo_each(const SphConst& c, const Src& src,
   });
 }
 
-// FORM_CACHE: the group's window walk, one window row dy at a time (3K <=
-// 32*kMaskWords candidates), in two passes. Pass 1 tests every candidate
-// of the row for validity, the lanes taking them dx fastest, so that the
-// group's loads fall on few cache lines, and ORs the valid window
-// positions into a bit mask that every lane of the group then holds. Pass
-// 2 takes the valid candidates in window order, lane l the l-th, (l+G)-th
-// ...: their geometry reaches fn and, with REC, entry n + p of the list.
-// Only valid candidates reach fn: an
-// invalid one adds +-0 to sums that start at +0 (see the note above). An
-// anchor parked at x = 1e9 (an empty slot) has no valid candidate, so it
-// skips the walk.
+// The wide cache kernels (K > 42) and the shear: the group's walk of an
+// anchor's window, ROWS window rows at a time (the cache: one; the shear:
+// all three), in pieces of kPiece = 32*kMaskWords window positions (w =
+// (dr*3 + dx)*K + j over the rows dr of the span; two pieces a row from
+// K = 43, one for the shear's whole window when 9K <= 128),
+// in two passes per piece. Pass 1 tests every candidate of the piece
+// (test(i)), the lanes taking the span's candidates dx fastest, so that the
+// group's loads fall on few cache lines, and ORs the piece's positions that
+// pass into a bit mask that every lane of the group then holds. Pass 2 takes
+// them in window order, lane l the l-th, (l+G)-th ...: fn(on, i, p) is
+// called by every lane of the group in step, with on set where the lane
+// holds a candidate, i its halo'd-core index and p its position among the
+// window's listed candidates. Spans and pieces are taken in window order, so
+// the listed candidates keep the (dy, dx, j) window order for every K.
+// Returns how many were listed.
 constexpr int kMaskWords = 4;
+constexpr int kPiece = 32 * kMaskWords;
 
-// the window position of set bit p (p < popcount) of a row's mask
+// the window position of set bit p (p < popcount) of a piece's mask
 __device__ __forceinline__ int nth_bit(const unsigned (&m)[kMaskWords],
                                        int p) {
   int base = 0;
@@ -530,56 +544,173 @@ __device__ __forceinline__ int nth_bit(const unsigned (&m)[kMaskWords],
   return -1;
 }
 
-template <int G, bool REC, class Fn>
-__device__ __forceinline__ void geo_each(const SphConst& c,
-                                         const GWin<G, REC>& src, float xa,
-                                         float ya, bool need_w, Fn&& fn) {
-  const CacheBufs& cb = src.cb;
-  const StepBufs& b = src.b;
-  const int K = c.K;
+template <int G, int ROWS, class Test, class Fn>
+__device__ __forceinline__ int walk_window(const SphConst& c,
+                                           const Lanes<G>& g, int iy, int ix,
+                                           Test&& test, Fn&& fn) {
+  const int K = c.K, R3 = 3 * K, W = ROWS * R3;
   int n = 0;
-  if (xa < kParked) {
-    for (int dy = 0; dy < 3; ++dy) {
-      const int row = (src.iy + dy) * K;
+  // the halo'd-core index of span position (dr, dx, j)
+  auto at = [&](int dy0, int dr, int dx, int j) {
+    return ((iy + dy0 + dr) * K + j) * (c.nx + 2) + ix + dx;
+  };
+  for (int dy0 = 0; dy0 < 3; dy0 += ROWS) {
+    for (int b = 0; b < W; b += kPiece) {
       unsigned m[kMaskWords] = {};
-      for (int t = src.lane; t < 3 * K; t += G) {
-        const int j = t / 3, dx = t - 3 * j;
-        const int i = (row + j) * (c.nx + 2) + src.ix + dx;
-        float ddx = xa - b.x[i];
-        if (c.nx < 3) ddx = ddx - c.DL * rintf(ddx / c.DL);
-        const float ddy = ya - b.y[i];
-        const float r2 = ddx * ddx + ddy * ddy;
-        if (r2 < c.cut2 && r2 > 1e-24f) {
-          const int w = dx * K + j;
-#pragma unroll
-          for (int q = 0; q < kMaskWords; ++q)
-            if ((w >> 5) == q) m[q] |= 1u << (w & 31);
+      // the piece position of candidate t of the span if it passes, else
+      // -1; PIECES: the span needs more than one piece, so a position may
+      // lie outside this one (no range test when one piece holds it)
+      auto probe = [&](int t, auto pieces) {
+        int dr = 0, u = t;
+        if constexpr (ROWS > 1) {
+          dr = t / R3;
+          u = t - dr * R3;
         }
+        const int j = u / 3, dx = u - 3 * j;
+        const int w = dr * R3 + dx * K + j - b;
+        if constexpr (decltype(pieces)::value) {
+          if (w < 0 || w >= kPiece) return -1;
+        }
+        return test(at(dy0, dr, dx, j)) ? w : -1;
+      };
+      auto mark = [&m](int w) {
+        if (w < 0) return;
+#pragma unroll
+        for (int q = 0; q < kMaskWords; ++q)
+          if ((w >> 5) == q) m[q] |= 1u << (w & 31);
+      };
+      if (W > kPiece) {
+        for (int t = g.lane; t < W; t += G) mark(probe(t, std::true_type{}));
+      } else {
+#pragma unroll 4
+        for (int t = g.lane; t < W; t += G)
+          mark(probe(t, std::false_type{}));
       }
       int cnt = 0;
 #pragma unroll
       for (int q = 0; q < kMaskWords; ++q) {
         for (int o = G / 2; o > 0; o >>= 1)
-          m[q] |= __shfl_xor_sync(src.mask, m[q], o, G);
+          m[q] |= __shfl_xor_sync(g.mask, m[q], o, G);
         cnt += __popc(m[q]);
       }
-      for (int p = src.lane; p < cnt; p += G) {
-        const int w = nth_bit(m, p);
-        const int dx = w / K, j = w - dx * K;
-        const int i = (row + j) * (c.nx + 2) + src.ix + dx;
-        const Geo g = geometry(c, xa, ya, b.x[i], b.y[i], b.isf[i], need_w);
-        fn(i, g);
-        if constexpr (REC) {
-          const int e = list_at(c, src.cs, n + p);
-          cb.idx[e] = i;
-          cb.ex[e] = g.ex;
-          cb.ey[e] = g.ey;
-          cb.r[e] = g.r;
-          cb.c1[e] = g.dw * g.m1;
-          cb.cw[e] = g.dw * g.mw;
+      for (int p0 = 0; p0 < cnt; p0 += G) {
+        const int p = p0 + g.lane;
+        int i = -1;
+        if (p < cnt) {
+          const int w = b + nth_bit(m, p);
+          int dr = 0, u = w;
+          if constexpr (ROWS > 1) {
+            dr = w / R3;
+            u = w - dr * R3;
+          }
+          const int dx = u / K, j = u - dx * K;
+          i = at(dy0, dr, dx, j);
         }
+        fn(p < cnt, i, n + p);
       }
       n += cnt;
+    }
+  }
+  return n;
+}
+
+// pass 1's validity test: the r^2 window test of geometry()
+__device__ __forceinline__ bool in_range(const SphConst& c, float xa,
+                                         float ya, float xv, float yv) {
+  float ddx = xa - xv;
+  if (c.nx < 3) ddx = ddx - c.DL * rintf(ddx / c.DL);
+  const float ddy = ya - yv;
+  const float r2 = ddx * ddx + ddy * ddy;
+  return r2 < c.cut2 && r2 > 1e-24f;
+}
+
+// FORM_CACHE: the group's window walk, one window row dy at a time, in
+// two passes. Pass 1 tests every candidate of the row for validity, the
+// lanes taking them dx fastest, so that the group's loads fall on few cache
+// lines, and ORs the valid window positions into a bit mask that every lane
+// of the group then holds. Pass 2 takes the valid candidates in window
+// order, lane l the l-th, (l+G)-th ...: their geometry reaches fn and, with
+// REC, entry n + p of the list. Only valid candidates reach fn: an invalid
+// one adds +-0 to sums that start at +0 (see the note above). An anchor
+// parked at x = 1e9 (an empty slot) has no valid candidate, so it skips the
+// walk. A row of 3K <= 128 candidates fits one mask; WIDE (K > 42) walks
+// each row in pieces of 128 window positions (walk_window), in window
+// order, so the list is the same. The two are kept apart, each in its own
+// kernel (cache_sweep, cache_sweep_wide): sharing one walk cost the narrow
+// kernels their spill-free registers and 3-15% of their time.
+template <int G, bool REC, bool WIDE, class Fn>
+__device__ __forceinline__ void geo_each(const SphConst& c,
+                                         const GWin<G, REC, WIDE>& src,
+                                         float xa, float ya, bool need_w,
+                                         Fn&& fn) {
+  const CacheBufs& cb = src.cb;
+  const StepBufs& b = src.b;
+  const int K = c.K;
+  int n = 0;
+  if (xa < kParked) {
+    if constexpr (WIDE) {
+      n = walk_window<G, 1>(
+          c, src, src.iy, src.ix,
+          [&](int i) { return in_range(c, xa, ya, b.x[i], b.y[i]); },
+          [&](bool on, int i, int p) {
+            if (!on) return;
+            const Geo g = geometry(c, xa, ya, b.x[i], b.y[i], b.isf[i],
+                                   need_w);
+            fn(i, g);
+            if constexpr (REC) {
+              const int e = list_at(c, src.cs, p);
+              cb.idx[e] = i;
+              cb.ex[e] = g.ex;
+              cb.ey[e] = g.ey;
+              cb.r[e] = g.r;
+              cb.c1[e] = g.dw * g.m1;
+              cb.cw[e] = g.dw * g.mw;
+            }
+          });
+    } else {
+      for (int dy = 0; dy < 3; ++dy) {
+        const int row = (src.iy + dy) * K;
+        unsigned m[kMaskWords] = {};
+        for (int t = src.lane; t < 3 * K; t += G) {
+          const int j = t / 3, dx = t - 3 * j;
+          const int i = (row + j) * (c.nx + 2) + src.ix + dx;
+          float ddx = xa - b.x[i];
+          if (c.nx < 3) ddx = ddx - c.DL * rintf(ddx / c.DL);
+          const float ddy = ya - b.y[i];
+          const float r2 = ddx * ddx + ddy * ddy;
+          if (r2 < c.cut2 && r2 > 1e-24f) {
+            const int w = dx * K + j;
+#pragma unroll
+            for (int q = 0; q < kMaskWords; ++q)
+              if ((w >> 5) == q) m[q] |= 1u << (w & 31);
+          }
+        }
+        int cnt = 0;
+#pragma unroll
+        for (int q = 0; q < kMaskWords; ++q) {
+          for (int o = G / 2; o > 0; o >>= 1)
+            m[q] |= __shfl_xor_sync(src.mask, m[q], o, G);
+          cnt += __popc(m[q]);
+        }
+        for (int p = src.lane; p < cnt; p += G) {
+          const int w = nth_bit(m, p);
+          const int dx = w / K, j = w - dx * K;
+          const int i = (row + j) * (c.nx + 2) + src.ix + dx;
+          const Geo g = geometry(c, xa, ya, b.x[i], b.y[i], b.isf[i],
+                                 need_w);
+          fn(i, g);
+          if constexpr (REC) {
+            const int e = list_at(c, src.cs, n + p);
+            cb.idx[e] = i;
+            cb.ex[e] = g.ex;
+            cb.ey[e] = g.ey;
+            cb.r[e] = g.r;
+            cb.c1[e] = g.dw * g.m1;
+            cb.cw[e] = g.dw * g.mw;
+          }
+        }
+        n += cnt;
+      }
     }
   }
   if constexpr (REC) {
@@ -938,18 +1069,19 @@ __device__ __forceinline__ void body(const SphConst& c, const StepBufs& b,
 // FORM_CACHE sweep S, G lanes per anchor slot: a cached slot's sweep 0
 // walks the window and writes the list, its sweeps 1-3 walk the list;
 // ranks k >= kcut ("partial") walk the window in every sweep
-template <int S, int G>
-__global__ void __launch_bounds__(128)
-    cache_sweep(SphConst c, StepBufs b, CacheBufs cb) {
+template <int S, int G, bool WIDE>
+__device__ __forceinline__ void cache_body(const SphConst& c,
+                                           const StepBufs& b,
+                                           const CacheBufs& cb) {
   if (b.dyn[4] == 0.0f) return;  // the chunk's interval or n_sub is done
   Slot s;
   Lanes<G> g;
   if (!group_slot<G>(c, b.occ, s, g)) return;
   const int cs = (s.iy * c.kcut + s.k) * c.nx + s.ix;
   if (s.k >= c.kcut) {
-    body<S>(c, b, s, GWin<G, false>{g, c, b, cb, s.iy, s.ix, 0});
+    body<S>(c, b, s, GWin<G, false, WIDE>{g, c, b, cb, s.iy, s.ix, 0});
   } else if constexpr (S == 0) {
-    body<0>(c, b, s, GWin<G, true>{g, c, b, cb, s.iy, s.ix, cs});
+    body<0>(c, b, s, GWin<G, true, WIDE>{g, c, b, cb, s.iy, s.ix, cs});
     if (!s.visited && g.lead()) cb.n[cs] = 0;
   } else {
     body<S>(c, b, s, GList<G, S>{g, c, b, cb, cs});
@@ -957,6 +1089,20 @@ __global__ void __launch_bounds__(128)
   if constexpr (S < 3) {
     if (g.lead()) store_rec<S>(c, b, cb, s);
   }
+}
+
+template <int S, int G>
+__global__ void __launch_bounds__(128)
+    cache_sweep(SphConst c, StepBufs b, CacheBufs cb) {
+  cache_body<S, G, false>(c, b, cb);
+}
+
+// K > 42: the window rows in pieces. The heavier walk spills at the
+// default register budget, so the wide kernel may use more registers
+template <int S, int G>
+__global__ void __launch_bounds__(128, 1)
+    cache_sweep_wide(SphConst c, StepBufs b, CacheBufs cb) {
+  cache_body<S, G, true>(c, b, cb);
 }
 
 // the largest v^2 = vx^2 + vy^2 of a block's threads into *vmax2 as float
@@ -1058,32 +1204,82 @@ __global__ void __launch_bounds__(256) refresh(SphConst c, StepBufs b,
 }
 
 // ---- wall-shear partials (sph_physics_mex.c:1713-1742;
-//      fused_cell.py:1928-1979) ----
+//      fused_cell.py:1928-1979). Only an anchor whose window holds a wall
+//      slot (wbot or wtop set) adds anything: every other term is f_pair
+//      times a zero mask, +-0, added to sums that start at +0. So the grid
+//      covers only the cell rows of b.rows (those whose window rows hold a
+//      wall slot, listed from the wall cores), kShearG lanes per anchor
+//      slot, and the slots of every other row keep the +0 their buffer was
+//      zeroed with. The lanes walk the whole 3x3 window at once
+//      (walk_window over three rows: one piece of the mask when 9K <= 128)
+//      and pass only the valid candidates that are not fluid (isf == 0:
+//      the wall slots, and the empty ones, which the range test drops), x
+//      and y loaded only for those; the lead lane adds the group's terms
+//      one by one in window order, the order in which the
+//      one-thread-per-slot walk over all 9K candidates added them, so a
+//      finite state gives that walk's sums bit for bit (it also added +-0
+//      for each other candidate, which leaves a sum that is never -0
+//      unchanged; a wall slot with neither mask set adds +-0 here too). No
+//      atomics: launches repeat bit for bit. An anchor parked at x = 1e9 or
+//      not visited writes +0. What bounds it: a few rows next to each wall,
+//      K*nx*kShearG threads a row, each group's chain of dependent loads
+//      (isf, then x and y, then the fields of the wall candidates) and its
+//      shuffles. kShearG = 16 was the fastest of 4/8/16/32 at dp=0.01. ----
+constexpr int kShearG = 16;
+
 __global__ void __launch_bounds__(128) shear(SphConst c, ShearBufs b) {
+  constexpr int G = kShearG;
+  Lanes<G> g;
+  const int wl = threadIdx.x & 31;
+  g.lane = wl & (G - 1);
+  g.mask = G == 32 ? 0xffffffffu : ((1u << G) - 1u) << (wl & ~(G - 1));
+  const int a = (blockIdx.x * blockDim.x + threadIdx.x) / G;
+  const int per_row = c.K * c.nx;
+  if (a >= b.nrows * per_row) return;
   Slot s;
-  if (!slot_of(c, b.occ, s)) return;
+  s.iy = b.rows[a / per_row];
+  const int rem = a - (a / per_row) * per_row;
+  s.k = rem / c.nx;
+  s.ix = rem - s.k * c.nx;
+  s.ha = hix(c, s.iy + 1, s.k, s.ix + 1);
+  s.visited = s.k < b.occ[s.iy / c.R];
+  const int ha = s.ha;
+  const float xa = b.x[ha], ya = b.y[ha];
   float tb = 0.0f, tt = 0.0f;
-  if (s.visited) {
-    const int ha = s.ha;
-    const float xa = b.x[ha], ya = b.y[ha];
+  if (s.visited && xa < kParked) {
     const float vxa = b.vx[ha], vola = b.vol[ha];
     const float b11a = b.b11[ha], b12a = b.b12[ha], b21a = b.b21[ha],
                 b22a = b.b22[ha];
-    for (int dy = 0; dy < 3; ++dy)
-      for (int dx = 0; dx < 3; ++dx) {
-        int hv = hix(c, s.iy + dy, 0, s.ix + dx);
-        for (int j = 0; j < c.K; ++j, hv += c.nx + 2) {
-          Geo q = geometry(c, xa, ya, b.x[hv], b.y[hv], b.isf[hv], false);
-          const float ebe = q.ex * (b11a * q.ex + b12a * q.ey) +
-                            q.ey * (b21a * q.ex + b22a * q.ey);
-          const float f_pair = (b.wf * b.mu * ebe * q.dw * b.vol[hv] *
-                                (vxa - b.wvx[hv]) / (q.r + c.h001) * vola) *
-                               q.mw;
-          tb += f_pair * b.wbot[hv];
-          tt += f_pair * b.wtop[hv];
-        }
-      }
+    walk_window<G, 3>(
+        c, g, s.iy, s.ix,
+        [&](int i) {
+          return b.isf[i] == 0.0f && in_range(c, xa, ya, b.x[i], b.y[i]);
+        },
+        [&](bool on, int i, int) {
+          float fb = 0.0f, ft = 0.0f;
+          if (on) {
+            const Geo q = geometry(c, xa, ya, b.x[i], b.y[i], b.isf[i],
+                                   false);
+            const float ebe = q.ex * (b11a * q.ex + b12a * q.ey) +
+                              q.ey * (b21a * q.ex + b22a * q.ey);
+            const float f_pair = (b.wf * b.mu * ebe * q.dw * b.vol[i] *
+                                  (vxa - b.wvx[i]) / (q.r + c.h001) * vola) *
+                                 q.mw;
+            fb = f_pair * b.wbot[i];
+            ft = f_pair * b.wtop[i];
+          }
+          // lanes without a candidate hold +0, which leaves the sum as it is
+          for (int l = 0; l < G; ++l) {
+            const float vb = __shfl_sync(g.mask, fb, l, G);
+            const float vt = __shfl_sync(g.mask, ft, l, G);
+            if (g.lead()) {
+              tb += vb;
+              tt += vt;
+            }
+          }
+        });
   }
+  if (!g.lead()) return;
   const int p = pix(c, s.iy, s.k, s.ix);
   b.tb[p] = tb;
   b.tt[p] = tt;
@@ -1097,21 +1293,56 @@ __global__ void __launch_bounds__(128) noop(SphConst c, StepBufs b) {
 }
 
 // ---- the one-hot lane tiling of tests/test_pallas.py:155-172: out (rows,
-//      K*bx) = v (rows, bx) @ E with E[c, k*bx + c] = 1, one thread per
-//      output element, E generated in registers. Each sum is one product
-//      v*1 and bx-1 products +-0 in float32 on the CUDA cores (--fmad=false),
-//      so out is exactly v tiled K times. The tensor cores would round the
-//      product under TF32 (10 mantissa bits): this card's counterpart of the
-//      MXU default-precision trap that test documents. ----
-__global__ void __launch_bounds__(256) expand(const float* v, float* out,
-                                             int rows, int bx, int K) {
-  const long long i = blockIdx.x * (long long)blockDim.x + threadIdx.x;
-  const int w = K * bx;
-  if (i >= (long long)rows * w) return;
-  const int r = static_cast<int>(i / w), c = static_cast<int>(i % w) % bx;
-  float acc = 0.0f;
-  for (int j = 0; j < bx; ++j) acc += v[r * bx + j] * (j == c ? 1.0f : 0.0f);
-  out[i] = acc;
+//      K*bx) = v (rows, bx) @ E with E[c, k*bx + c] = 1. In float32 each
+//      output is a sum that starts at +0 and adds v[c]*1 and bx-1 products
+//      v[j]*0: +-0 for a finite v[j], NaN for an inf or a NaN. So it is
+//      v[c] + 0 (which maps -0 to +0) when no other entry of the row is
+//      non-finite and v[c] is not NaN, and NaN otherwise, whatever the order
+//      of the sum. One block per row: the row is loaded once, coalesced,
+//      into shared memory, its count of non-finite entries taken with one
+//      block reduction, and the K copies written as float4 stores where a
+//      row's width is a multiple of 4. What bounds it: the output bytes
+//      (K times the input); at the shapes of the probes, the launch. The
+//      tensor cores would round the product under TF32 (10 mantissa bits):
+//      this card's counterpart of the MXU default-precision trap that test
+//      documents. ----
+__device__ __forceinline__ float expand_at(const float* vrow, int nbad,
+                                           int e, int bx) {
+  const float a = vrow[e % bx];
+  const int others = nbad - (isfinite(a) ? 0 : 1);
+  return others == 0 && !isnan(a) ? a + 0.0f : __int_as_float(0x7fffffff);
+}
+
+__global__ void __launch_bounds__(128) expand(const float* v, float* out,
+                                             int bx, int K) {
+  extern __shared__ float vrow[];
+  __shared__ int nbad;
+  if (threadIdx.x == 0) nbad = 0;
+  __syncthreads();
+  const float* src = v + static_cast<long long>(blockIdx.x) * bx;
+  int bad = 0;
+  for (int j = threadIdx.x; j < bx; j += blockDim.x) {
+    const float a = src[j];
+    vrow[j] = a;
+    bad += isfinite(a) ? 0 : 1;
+  }
+  if (bad) atomicAdd(&nbad, bad);
+  __syncthreads();
+  const int w = K * bx, nb = nbad;
+  float* o = out + static_cast<long long>(blockIdx.x) * w;
+  if ((w & 3) == 0) {
+    float4* o4 = reinterpret_cast<float4*>(o);
+    for (int q = threadIdx.x; q < w / 4; q += blockDim.x) {
+      const int e = 4 * q;
+      o4[q] = make_float4(expand_at(vrow, nb, e, bx),
+                          expand_at(vrow, nb, e + 1, bx),
+                          expand_at(vrow, nb, e + 2, bx),
+                          expand_at(vrow, nb, e + 3, bx));
+    }
+  } else {
+    for (int e = threadIdx.x; e < w; e += blockDim.x)
+      o[e] = expand_at(vrow, nb, e, bx);
+  }
 }
 
 inline int blocks_for(int n, int per) { return (n + per - 1) / per; }
@@ -1151,18 +1382,39 @@ void launch_sweeps(const SphConst& c, const StepBufs& b, const CacheBufs& cb,
   }
 }
 
-template <int G>
+template <int G, bool WIDE>
 void launch_cache(const SphConst& c, const StepBufs& b, const CacheBufs& cb,
                   int s, cudaStream_t st) {
   const int nb = blocks_for(c.nyp * c.K * c.nx * G, 128);
-  if (s == 0) {
-    if constexpr (G >= 4) cache_sweep<0, G><<<nb, 128, 0, st>>>(c, b, cb);
-  } else if (s == 1)
-    cache_sweep<1, G><<<nb, 128, 0, st>>>(c, b, cb);
-  else if (s == 2)
-    cache_sweep<2, G><<<nb, 128, 0, st>>>(c, b, cb);
+  if constexpr (WIDE) {
+    if (s == 0) {
+      if constexpr (G >= 4)
+        cache_sweep_wide<0, G><<<nb, 128, 0, st>>>(c, b, cb);
+    } else if (s == 1)
+      cache_sweep_wide<1, G><<<nb, 128, 0, st>>>(c, b, cb);
+    else if (s == 2)
+      cache_sweep_wide<2, G><<<nb, 128, 0, st>>>(c, b, cb);
+    else
+      cache_sweep_wide<3, G><<<nb, 128, 0, st>>>(c, b, cb);
+  } else {
+    if (s == 0) {
+      if constexpr (G >= 4) cache_sweep<0, G><<<nb, 128, 0, st>>>(c, b, cb);
+    } else if (s == 1)
+      cache_sweep<1, G><<<nb, 128, 0, st>>>(c, b, cb);
+    else if (s == 2)
+      cache_sweep<2, G><<<nb, 128, 0, st>>>(c, b, cb);
+    else
+      cache_sweep<3, G><<<nb, 128, 0, st>>>(c, b, cb);
+  }
+}
+
+template <int G>
+void launch_cache(const SphConst& c, const StepBufs& b, const CacheBufs& cb,
+                  int s, cudaStream_t st) {
+  if (3 * c.K > kPiece)
+    launch_cache<G, true>(c, b, cb, s, st);
   else
-    cache_sweep<3, G><<<nb, 128, 0, st>>>(c, b, cb);
+    launch_cache<G, false>(c, b, cb, s, st);
 }
 
 cudaError_t sweeps(const SphConst& c, const StepBufs& b, const CacheBufs& cb,
@@ -1221,9 +1473,12 @@ int sph_noop(const SphConst* cp, const StepBufs* bp, void* stream) {
 
 int sph_expand(const float* v, float* out, int rows, int bx, int K,
                void* stream) {
-  const long long n = static_cast<long long>(rows) * K * bx;
-  expand<<<static_cast<int>((n + 255) / 256), 256, 0,
-           static_cast<cudaStream_t>(stream)>>>(v, out, rows, bx, K);
+  const size_t sm = sizeof(float) * bx;
+  if (sm > 48 * 1024)
+    cudaFuncSetAttribute(expand, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                         static_cast<int>(sm));
+  expand<<<rows, 128, sm, static_cast<cudaStream_t>(stream)>>>(v, out, bx,
+                                                              K);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -1253,7 +1508,9 @@ int sph_shear(const SphConst* cp, const ShearBufs* bp, void* stream) {
   const SphConst c = *cp;
   const ShearBufs b = *bp;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  shear<<<blocks_for(c.nyp * c.K * c.nx, 128), 128, 0, st>>>(c, b);
+  if (b.nrows == 0) return static_cast<int>(cudaGetLastError());
+  const int n = b.nrows * c.K * c.nx;
+  shear<<<blocks_for(n * kShearG, 128), 128, 0, st>>>(c, b);
   return static_cast<int>(cudaGetLastError());
 }
 

@@ -16,7 +16,7 @@ from typing import Mapping, Optional
 import numpy as np
 import torch
 
-from .ops.fused_cell import FusedLayout
+from .ops.fused_cell import FusedLayout, shear_row_list
 from .stepper import State
 
 
@@ -39,7 +39,8 @@ def state_from_numpy(arrays: Mapping[str, np.ndarray], dtype=torch.float32,
 
 def layout_from_numpy(arrays: Mapping[str, np.ndarray], dtype=torch.float32,
                       device="cpu") -> FusedLayout:
-    """Build a ``FusedLayout`` from the JAX layout's fields."""
+    """Build a ``FusedLayout`` from the JAX layout's fields; the wall-row
+    list the JAX layout does not carry is built from its wall masks."""
     def conv(name, a):
         a = np.asarray(a)
         if name in ("pidx", "hidx"):
@@ -49,5 +50,8 @@ def layout_from_numpy(arrays: Mapping[str, np.ndarray], dtype=torch.float32,
         if name == "overflow":
             return torch.tensor(bool(a), device=device)
         return torch.tensor(a, dtype=dtype, device=device)
-    return FusedLayout(**{n: conv(n, arrays[n]) for n in FusedLayout._fields})
+    lay = FusedLayout(**{n: conv(n, arrays[n]) for n in FusedLayout._fields
+                         if n in arrays})
+    rows, tbt = shear_row_list(lay.wbot_c, lay.wtop_c)
+    return lay._replace(shear_rows=rows, shear_tbt=tbt)
 

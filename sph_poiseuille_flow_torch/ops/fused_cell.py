@@ -213,6 +213,15 @@ class FusedLayout(NamedTuple):
     refy_p: torch.Tensor
     occ: torch.Tensor     # (n_groups, 1) int32 anchor-rank bound per group
     overflow: torch.Tensor  # 0-dim bool
+    # the wall shear's static data (``shear_row_list``; walls do not move,
+    # so an engine builds it from its first layout and hands it to every
+    # rebuild): the (n,) int32 cell rows, ascending, whose window rows
+    # (halo'd rows iy .. iy+2) hold a slot with wbot or wtop set, the only
+    # rows whose partials are not +-0; the (2, nyp, K, nx) per-slot
+    # partials (bottom, top), zeroed once: the kernel writes the listed
+    # rows only, so every other slot keeps +0
+    shear_rows: torch.Tensor = None
+    shear_tbt: torch.Tensor = None
 
 
 def _scatter(n_slots: int, idx, vals, fill):
@@ -253,6 +262,19 @@ def halo_ify(spec: GridSpec, plain, fill: float = 0.0,
     return torch.cat([pad, c, pad], dim=0)
 
 
+def halo_ify_many(spec: GridSpec, plains):
+    """``halo_ify`` (fill 0, no shift) of several plain cores in one go:
+    the same values, in fewer launches. Returns contiguous halo'd cores."""
+    stack = torch.stack(list(plains))
+    F, nyp, K, nx = stack.shape
+    if nx >= 3:
+        c = torch.cat([stack[..., -1:], stack, stack[..., :1]], dim=3)
+    else:
+        c = torch.nn.functional.pad(stack, (1, 1))
+    out = torch.nn.functional.pad(c, (0, 0, 0, 0, 1, 1))
+    return [out[f] for f in range(F)]
+
+
 def make_core(spec: GridSpec, pidx, vals, fill: float = 0.0,
               xshift: float = 0.0):
     """Packed scatter of a per-particle array into the halo'd core."""
@@ -273,11 +295,14 @@ def _packed_cores(spec: GridSpec, pidx, fields, fills):
 
 
 def build_fused_layout(spec: GridSpec, x, y, mass, wall_vx, wall_vy,
-                       wall_y, state_fields=()) -> FusedLayout:
+                       wall_y, state_fields=(), shear=None
+                       ) -> FusedLayout:
     """Slot assignment + static cores. ``state_fields`` optionally rides
     extra per-particle arrays through the SAME packed scatter (the
     in-loop rebuild scatters vx/vy/drho this way); their plain cores are
-    returned as a second value."""
+    returned as a second value. ``shear``: (shear_rows, shear_tbt) of an
+    earlier layout of the same walls (walls do not move, so they hold for
+    every rebuild); built here from the wall cores when not given."""
     from .cellgrid import assign_slots
 
     R, L, n_groups, nyp = plan(spec)
@@ -314,19 +339,36 @@ def build_fused_layout(spec: GridSpec, x, y, mass, wall_vx, wall_vy,
               x, y] + list(state_fields)
     fills = [0.0] * 7 + [_BIG_X, 0.0] + [0.0] * len(state_fields)
     cores = _packed_cores(spec, pidx, fields, fills)
+    wbot_c, wtop_c = halo_ify(spec, cores[5]), halo_ify(spec, cores[6])
+    shear_rows, shear_tbt = (shear_row_list(wbot_c, wtop_c) if shear is None
+                             else shear)
     lay = FusedLayout(
         pidx=pidx, hidx=hidx,
         isf_c=halo_ify(spec, cores[0]),
         mass_c=halo_ify(spec, cores[2]),
         wvx_c=halo_ify(spec, cores[3]),
         wvy_c=halo_ify(spec, cores[4]),
-        wbot_c=halo_ify(spec, cores[5]),
-        wtop_c=halo_ify(spec, cores[6]),
+        wbot_c=wbot_c, wtop_c=wtop_c,
         refx_p=cores[7], refy_p=cores[8],
-        occ=occ, overflow=overflow)
+        occ=occ, overflow=overflow, shear_rows=shear_rows,
+        shear_tbt=shear_tbt)
     if state_fields:
         return lay, cores[9:]
     return lay
+
+
+def shear_row_list(wbot_c, wtop_c):
+    """(shear_rows, shear_tbt) of ``FusedLayout``: the anchor rows whose
+    window rows (halo'd rows iy .. iy+2) hold a slot with ``wbot`` or
+    ``wtop`` set, the only rows whose wall-shear partials are not +-0, and
+    the zeroed partials, on the cores' device (one host sync: an engine
+    builds them once)."""
+    wall = ((wbot_c != 0) | (wtop_c != 0)).flatten(1).any(dim=1)
+    near = wall[:-2] | wall[1:-1] | wall[2:]
+    nyp, K, nx = wbot_c.shape[0] - 2, wbot_c.shape[1], wbot_c.shape[2] - 2
+    return (torch.nonzero(near).flatten().to(torch.int32),
+            torch.zeros((2, nyp, K, nx), dtype=wbot_c.dtype,
+                        device=wbot_c.device))
 
 
 def take_h(lay: FusedLayout, core):
@@ -949,35 +991,66 @@ def fused_chunk_call(spec: GridSpec, lay: FusedLayout, xH, yH, vxH, vyH,
 
 
 def _shear_plain(spec: GridSpec, lay: FusedLayout, xH, yH, vxH, volH, b11H,
-                 b12H, b21H, b22H, mu, wf):
+                 b12H, b21H, b22H, mu, wf, rows=None):
     """Per-slot (bottom, top) wall-shear partials (JAX _shear_kernel,
-    fused_cell.py:1928-1979)."""
+    fused_cell.py:1928-1979). ``rows``: compute only these anchor rows (a
+    1-D index tensor) and leave +0 in the others, as the kernel does."""
     h = spec.h
     nyp = xH.shape[0] - 2
     vis = _visited(spec, lay.occ, nyp)
     zero = torch.zeros((), dtype=xH.dtype, device=xH.device)
+
+    def anc(core):
+        a = _pair(_anc(core))
+        return a if rows is None else a[rows]
+
+    def win(core):
+        w = _win(spec, core)
+        return w if rows is None else w[rows]
+
     r, ex, ey, _, dw, m1, mw = _geometry(
-        spec, _pair(_anc(xH)), _pair(_anc(yH)), _win(spec, xH),
-        _win(spec, yH), _win(spec, lay.isf_c), need_w=False)
-    b11a, b12a = _pair(_anc(b11H)), _pair(_anc(b12H))
-    b21a, b22a = _pair(_anc(b21H)), _pair(_anc(b22H))
+        spec, anc(xH), anc(yH), win(xH), win(yH), win(lay.isf_c),
+        need_w=False)
+    b11a, b12a, b21a, b22a = anc(b11H), anc(b12H), anc(b21H), anc(b22H)
     ebe = ex * (b11a * ex + b12a * ey) + ey * (b21a * ex + b22a * ey)
-    f_pair = (wf * mu * ebe * dw * _win(spec, volH)
-              * (_pair(_anc(vxH)) - _win(spec, lay.wvx_c))
-              / (r + 0.01 * h) * _pair(_anc(volH))) * mw
-    tb = torch.sum(f_pair * _win(spec, lay.wbot_c), dim=2)
-    tt = torch.sum(f_pair * _win(spec, lay.wtop_c), dim=2)
-    return torch.where(vis, tb, zero), torch.where(vis, tt, zero)
+    f_pair = (wf * mu * ebe * dw * win(volH)
+              * (anc(vxH) - win(lay.wvx_c))
+              / (r + 0.01 * h) * anc(volH)) * mw
+    tb = torch.sum(f_pair * win(lay.wbot_c), dim=2)
+    tt = torch.sum(f_pair * win(lay.wtop_c), dim=2)
+    if rows is None:
+        return torch.where(vis, tb, zero), torch.where(vis, tt, zero)
+    out = torch.zeros((2, nyp) + tuple(tb.shape[1:]), dtype=xH.dtype,
+                      device=xH.device)
+    out[0, rows] = torch.where(vis[rows], tb, zero)
+    out[1, rows] = torch.where(vis[rows], tt, zero)
+    return out[0], out[1]
+
+
+def fused_wall_shear_slots_plain(spec: GridSpec, lay: FusedLayout, xH, yH,
+                                 vxH, volH, b11H, b12H, b21H, b22H, mu,
+                                 wall_visc_factor: float = 4.0,
+                                 every_row: bool = False):
+    """Plain PyTorch twin of the wall-shear kernel's per-slot partials
+    (any device): (2, nyp, K, nx), bottom then top, computed over the
+    layout's wall rows only, +0 elsewhere; ``every_row``: over every row,
+    as the JAX kernel computes them (what the row list is checked
+    against)."""
+    rows = None if every_row else lay.shear_rows.to(torch.int64)
+    tb, tt = _shear_plain(spec, lay, xH, yH, vxH, volH, b11H, b12H, b21H,
+                          b22H, _scalar(mu, xH),
+                          _scalar(wall_visc_factor, xH), rows=rows)
+    return torch.stack([tb, tt])
 
 
 def fused_wall_shear_cores_plain(spec: GridSpec, lay: FusedLayout, xH, yH,
                                  vxH, volH, b11H, b12H, b21H, b22H, mu,
                                  wall_visc_factor: float = 4.0):
-    """Plain PyTorch twin of the wall-shear kernel (any device)."""
-    tb, tt = _shear_plain(spec, lay, xH, yH, vxH, volH, b11H, b12H, b21H,
-                          b22H, _scalar(mu, xH),
-                          _scalar(wall_visc_factor, xH))
-    return -torch.sum(tb) / spec.DL, -torch.sum(tt) / spec.DL
+    """Plain PyTorch twin of ``fused_wall_shear_cores`` (any device)."""
+    tbt = fused_wall_shear_slots_plain(spec, lay, xH, yH, vxH, volH, b11H,
+                                       b12H, b21H, b22H, mu,
+                                       wall_visc_factor)
+    return -torch.sum(tbt[0]) / spec.DL, -torch.sum(tbt[1]) / spec.DL
 
 
 def fused_wall_shear_cores(spec: GridSpec, lay: FusedLayout, xH, yH, vxH,
@@ -986,25 +1059,28 @@ def fused_wall_shear_cores(spec: GridSpec, lay: FusedLayout, xH, yH, vxH,
     """Wall-shear monitor over cores in the (freshly rebuilt) layout:
     (tau_bottom, tau_top) as 0-dim tensors, tau = -sum/DL (reference
     ordering SPH_Poiseuille.m:280-283; formula
-    sph_physics_mex.c:1713-1742)."""
+    sph_physics_mex.c:1713-1742). On CUDA the kernel's per-slot partials
+    are summed with one ``torch.sum`` for both walls."""
     _check_device(xH)
     if not xH.is_cuda:
         return fused_wall_shear_cores_plain(
             spec, lay, xH, yH, vxH, volH, b11H, b12H, b21H, b22H, mu,
             wall_visc_factor)
-    tb, tt = fused_cell_cuda.wall_shear(
+    tbt = fused_cell_cuda.wall_shear(
         spec, plan(spec)[0], lay, xH, yH, vxH, volH, b11H, b12H, b21H,
         b22H, mu, wall_visc_factor)
-    return -torch.sum(tb) / spec.DL, -torch.sum(tt) / spec.DL
+    return (torch.sum(tbt.view(2, -1), dim=1) / (-spec.DL)).unbind()
 
 
 def fused_wall_shear(spec: GridSpec, lay: FusedLayout, x, y, vx, vol,
                      b11, b12, b21, b22, mu, wall_visc_factor: float = 4.0):
-    """Per-particle wrapper of ``fused_wall_shear_cores``."""
+    """Per-particle wrapper of ``fused_wall_shear_cores``: x gets its own
+    core (fill 1e9, translated halo columns); the other seven fields ride
+    one packed scatter and one batched halo."""
     xH = make_core(spec, lay.pidx, x, fill=_BIG_X, xshift=spec.DL)
-    yH, volH, vxH, b11H, b12H, b21H, b22H = (
-        make_core(spec, lay.pidx, v)
-        for v in (y, vol, vx, b11, b12, b21, b22))
+    yH, volH, vxH, b11H, b12H, b21H, b22H = halo_ify_many(
+        spec, _packed_cores(spec, lay.pidx, (y, vol, vx, b11, b12, b21, b22),
+                            (0.0,) * 7))
     return fused_wall_shear_cores(
         spec, lay, xH, yH, vxH, volH, b11H, b12H, b21H, b22H, mu,
         wall_visc_factor)

@@ -20,6 +20,7 @@ way to another.
 from __future__ import annotations
 
 import ctypes
+import functools
 import hashlib
 import math
 import os
@@ -59,8 +60,6 @@ CACHE_GROUPS0 = (4, 8, 16, 32)
 CACHE_GROUPS = (1, 2, 4, 8, 16, 32)
 CACHE_THREADS = 160_000   # threads a cache sweep should put on the card
 CACHE_G_MAX = 8           # lanes per anchor in sweeps 1-3 at most
-# words of the kernel's per-window-row validity mask (kMaskWords)
-CACHE_MASK_WORDS = 4
 
 _lib = None
 
@@ -90,7 +89,7 @@ class _StepBufs(ctypes.Structure):
 
 
 _SHEAR_PTRS = ("x", "y", "isf", "vol", "vx", "b11", "b12", "b21", "b22",
-               "wvx", "wbot", "wtop", "occ", "tb", "tt")
+               "wvx", "wbot", "wtop", "occ", "rows", "tb", "tt")
 
 
 _CACHE_PTRS = ("idx", "ex", "ey", "r", "c1", "cw", "n", "rec")
@@ -102,7 +101,8 @@ class _CacheBufs(ctypes.Structure):
 
 class _ShearBufs(ctypes.Structure):
     _fields_ = ([(n, ctypes.c_void_p) for n in _SHEAR_PTRS]
-                + [("mu", ctypes.c_float), ("wf", ctypes.c_float)])
+                + [("mu", ctypes.c_float), ("wf", ctypes.c_float),
+                   ("nrows", ctypes.c_int)])
 
 
 def _nvcc() -> str:
@@ -291,10 +291,6 @@ def _form(form: str, k_cut: int, K: int):
     if kform == 1 and not 1 <= kcut <= K:
         raise ValueError(f"geometry-cache form {form!r} needs 1 <= k_cut "
                          f"<= K={K}, got {k_cut}")
-    if kform == 1 and 3 * K > 32 * CACHE_MASK_WORDS:
-        raise ValueError(f"geometry-cache form {form!r}: a window row of "
-                         f"3K = {3 * K} candidates exceeds the kernel's "
-                         f"{32 * CACHE_MASK_WORDS}-bit mask (K <= 42)")
     return kform, kcut
 
 
@@ -486,27 +482,38 @@ def chunk(spec, R: int, lay, xH, yH, vxH, vyH, drP, t_local, t_comp,
             vmax2.view(torch.float32)[0])
 
 
+@functools.lru_cache(maxsize=8)
+def _shear_const(spec, R: int):
+    return _const(spec, R, 1.0, 0.0, 0.0, 0.0, 0.0)
+
+
 def wall_shear(spec, R: int, lay, xH, yH, vxH, volH, b11H, b12H, b21H,
                b22H, mu, wf):
-    """Per-slot (bottom, top) wall-shear partials (the JAX
-    _shear_kernel); the caller sums them."""
-    lib = _load()
+    """Per-slot wall-shear partials (the JAX _shear_kernel) as one
+    (2, nyp, K, nx) tensor, bottom then top; the caller sums them. The
+    kernel runs over the layout's wall rows (``lay.shear_rows``) only and
+    writes them into ``lay.shear_tbt``, whose other slots hold +0: the
+    tensor returned is that buffer, rewritten by the next call."""
     halo, plain, nyp = _shapes(spec, R)
-    fields = dict(x=xH, y=yH, isf=lay.isf_c, vol=volH, vx=vxH, b11=b11H,
-                  b12=b12H, b21=b21H, b22=b22H, wvx=lay.wvx_c,
-                  wbot=lay.wbot_c, wtop=lay.wtop_c)
     dev = xH.device
-    for n, t in fields.items():
-        _check(t, halo, n, dev)
+    rows, tbt = lay.shear_rows, lay.shear_tbt
+    cores = (xH, yH, lay.isf_c, volH, vxH, b11H, b12H, b21H, b22H,
+             lay.wvx_c, lay.wbot_c, lay.wtop_c)
+    for n, t in zip(_SHEAR_PTRS, cores):
+        if not (t.device == dev and t.dtype == torch.float32
+                and t.shape == halo and t.is_contiguous()):
+            _check(t, halo, n, dev)
     _check(lay.occ, (nyp // R, 1), "occ", dev, torch.int32)
-    tb = torch.zeros(plain, dtype=torch.float32, device=dev)
-    tt = torch.zeros(plain, dtype=torch.float32, device=dev)
-    ptrs = dict(fields, occ=lay.occ, tb=tb, tt=tt)
-    bufs = _ShearBufs(**{n: ptrs[n].data_ptr() for n in _SHEAR_PTRS},
-                      mu=float(mu), wf=float(wf))
-    c = _const(spec, R, 1.0, 0.0, 0.0, 0.0, 0.0)
+    _check(rows, rows.shape[:1], "shear_rows", dev, torch.int32)
+    _check(tbt, (2,) + plain, "shear_tbt", dev)
+    tb = tbt.data_ptr()
+    bufs = _ShearBufs(*(t.data_ptr() for t in cores), lay.occ.data_ptr(),
+                      rows.data_ptr(), tb, tb + 4 * math.prod(plain),
+                      float(mu), float(wf), rows.shape[0])
+    c = _shear_const(spec, R)
+    lib = _load()
     with torch.cuda.device(dev):
         _raise_on(lib.sph_shear(ctypes.addressof(c), ctypes.addressof(bufs),
                                 _stream(dev)), "sph_shear")
     LAUNCHES["fused_wall_shear"] += 1
-    return tb, tt
+    return tbt

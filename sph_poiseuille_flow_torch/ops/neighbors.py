@@ -1,8 +1,9 @@
 """Cell-grid geometry for the fused cell-layout engine (torch port).
 
 Ports the parts of the JAX package's ``ops/neighbors.py`` that the fused
-engine reaches: ``GridSpec``, ``make_grid_spec`` (with its lane-packed
-column picker ``_lane_packed_nx``) and ``_cell_coords``. The grid choice
+and cell-layout engines reach: ``GridSpec``, ``make_grid_spec`` (with its
+lane-packed column picker ``_lane_packed_nx``), ``_cell_coords`` and
+``step_displacement_exceeded``. The grid choice
 is the JAX package's own, so cores compare one for one with it; tuning the
 grid for the GPU is left to a later change.
 """
@@ -209,3 +210,17 @@ def _cell_coords(spec: GridSpec, x: torch.Tensor, y: torch.Tensor):
     cy = torch.clamp(torch.floor((y - spec.y0) / spec.cell_y).to(torch.int32),
                      0, spec.ny - 1)
     return cx, cy
+
+
+def step_displacement_exceeded(spec: GridSpec, x0, y0, x1, y1):
+    """True (0-dim bool) when a SINGLE step's motion crossed the half-skin
+    budget (the JAX package's ``step_displacement_exceeded``): the
+    unrecoverable drift-guard case, which an immediate rebuild cannot heal.
+    Accumulated drift over several stale-list steps is healed in the
+    engine by an early rebuild (``stepper.CellEngine``)."""
+    if spec.skin <= 0.0:
+        return torch.zeros((), dtype=torch.bool, device=x1.device)
+    ddx = x1 - x0
+    ddx = ddx - spec.DL * torch.round(ddx / spec.DL)
+    ddy = y1 - y0
+    return torch.max(ddx * ddx + ddy * ddy) > (0.5 * spec.skin) ** 2

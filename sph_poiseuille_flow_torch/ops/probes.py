@@ -148,6 +148,20 @@ def expand_onehot_plain(v: torch.Tensor, K: int) -> torch.Tensor:
     return torch.matmul(v, onehot_tiling(v.shape[1], K, v))
 
 
+def expand_onehot_values(v: torch.Tensor, K: int) -> torch.Tensor:
+    """What ``v @ E`` is in floating point, entry by entry: each output is
+    a sum of v[c]*1 and bx-1 products v[j]*0, which are +-0 for a finite
+    v[j] and NaN for an inf or a NaN. So it is v[c] + 0 (-0 becomes +0)
+    where no other entry of the row is non-finite and v[c] is not NaN, and
+    NaN elsewhere, in any order of the sum. The reference the expand kernel
+    and its plain version are held to on -0, inf and NaN."""
+    bad = ~torch.isfinite(v)
+    others = bad.sum(dim=1, keepdim=True) - bad.to(torch.int64)
+    nan = torch.full((), float("nan"), dtype=v.dtype, device=v.device)
+    return torch.where((others == 0) & ~torch.isnan(v), v + 0.0,
+                       nan).repeat(1, K)
+
+
 def expand_onehot(v: torch.Tensor, K: int) -> torch.Tensor:
     """(rows, bx) -> (rows, K*bx): ``v @ E``, E the one-hot lane-tiling
     matrix, which is exactly ``v`` tiled K times along columns. CUDA

@@ -48,12 +48,17 @@ def main(argv=None) -> int:
                              "PyTorch twins")
     parser.add_argument("--engine", default="auto",
                         choices=["auto", "cellgrid", "pallas", "gather"],
-                        help="auto/pallas: the fused cell-layout engine; "
-                             "cellgrid and gather are not ported yet and "
-                             "raise")
+                        help="pallas: the fused cell-layout engine (its "
+                             "CUDA kernels are float32); cellgrid: the "
+                             "cell-layout engine of plain torch ops "
+                             "(float32 or float64 on either device); auto: "
+                             "pallas for float32, cellgrid for float64; "
+                             "gather is not ported yet and raises")
     parser.add_argument("--dtype", default="float32",
                         choices=["float32", "float64"],
-                        help="state dtype (float64 only with --device cpu)")
+                        help="state dtype; float64 runs through the "
+                             "cellgrid engine (which auto picks for it) "
+                             "on either device")
     parser.add_argument("--cell-capacity", type=int, default=16,
                         help="neighbor-grid per-cell capacity")
     parser.add_argument("--neighbor-skin", type=float, default=0.0,
@@ -127,11 +132,11 @@ def main(argv=None) -> int:
     args = parser.parse_args(argv)
 
     if args.mesh is not None:
-        _not_ported("--mesh", "ROADMAP.md queue 1 item 10")
+        _not_ported("--mesh", "ROADMAP.md queue 1 item 6")
     if args.sweep_mus:
-        _not_ported("--sweep-mus", "ROADMAP.md queue 1 item 9")
+        _not_ported("--sweep-mus", "ROADMAP.md queue 1 item 5")
     if args.sweep_lane_chunk is not None:
-        _not_ported("--sweep-lane-chunk", "ROADMAP.md queue 1 item 9")
+        _not_ported("--sweep-lane-chunk", "ROADMAP.md queue 1 item 5")
 
     if args.postprocess_only:
         from .utils.postprocess import postprocess_file

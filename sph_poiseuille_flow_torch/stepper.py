@@ -24,6 +24,12 @@ shear every step and a step-log row every ``step_log_every`` steps (the
 reference's per-step log, SPH_Poiseuille.m:285-291). It takes one host
 sync per step; it is not the hot path.
 
+``CellEngine`` is the JAX package's XLA cell-layout engine
+(stepper.py:395-594) in plain torch ops (``ops/cellgrid.py``), in float32
+or float64 on any device: the engine of float64 runs. Its interval loop is
+a Python loop with one host sync per step (dt for the Kahan clock and the
+drift flag that decides an early rebuild).
+
 State lives as a ``NamedTuple`` of 1-D tensors on one explicit device.
 """
 
@@ -38,16 +44,13 @@ import torch
 
 from .config import SPHConfig
 from .models.poiseuille import Scene
+from .ops import cellgrid as cg
 from .ops import fused_cell as pc
 from .ops import neighbors as nbr
 from .ops.integration import periodic_wrap, verlet_dt
 
 ROADMAP_ITEM = {
-    "cellgrid": "ROADMAP.md queue 1 item 3-4 (pure-torch cell step and the "
-                "per-step CellEngine)",
-    "gather": "ROADMAP.md queue 1 item 8 (gather engine)",
-    "f64_cuda": "ROADMAP.md queue 2 (float64 CUDA kernels; the fused "
-                "kernels are float32, as Pallas compiles f32 only)",
+    "gather": "ROADMAP.md queue 1 item 4 (the gather engine)",
 }
 
 
@@ -83,8 +86,8 @@ class IntervalResult(NamedTuple):
     plain numbers."""
 
     state: State
-    cands: pc.FusedLayout
-    geom: torch.Tensor          # the step's pair count (fused convention)
+    cands: NamedTuple           # FusedLayout (fused), CellLayout (cellgrid)
+    geom: object                # pair count (fused), CellGeometry (cellgrid)
     tau_bottom: torch.Tensor
     tau_top: torch.Tensor
     n_steps: int
@@ -143,6 +146,178 @@ def initial_state(cfg: SPHConfig, scene: Scene, device) -> State:
         b21=z.clone(), b22=torch.ones(n, dtype=dtype, device=device))
 
 
+class CellEngine:
+    """The cell-layout engine of plain torch ops (``ops/cellgrid.py``; the
+    JAX package's ``CellEngine``, stepper.py:395-594): every per-pair
+    access is a static slice of the padded cell grid; one packed scatter
+    and one packed collect per step touch particle order. It runs in
+    float32 or float64 on any device.
+
+    API as the fused engine's: ``init(state) -> (state, layout, geometry,
+    overflow)``, ``step`` and ``run_interval(state, layout, geometry,
+    interval_len, ...) -> IntervalResult``."""
+
+    def __init__(self, cfg: SPHConfig, scene: Scene, device):
+        self.device = torch.device(device)
+        self.cfg = cfg
+        self.scene = scene
+        self.spec = nbr.make_grid_spec(cfg, scene)
+        dtype = getattr(torch, cfg.dtype)
+        self.dtype = dtype
+        self._mass = torch.as_tensor(scene.mass, dtype=dtype,
+                                     device=self.device)
+        self._wall_vx = torch.zeros(scene.n_total, dtype=dtype,
+                                    device=self.device)
+        self._wall_vy = torch.zeros_like(self._wall_vx)
+        self._wall_y = torch.as_tensor(scene.y, dtype=dtype,
+                                       device=self.device)
+
+    def _rebuild(self, x, y):
+        return cg.build_layout(self.spec, x, y, self._mass, self._wall_vx,
+                               self._wall_vy, self._wall_y)
+
+    def _false(self):
+        return torch.zeros((), dtype=torch.bool, device=self.device)
+
+    def _step(self, state: State, lay, geom, step_idx: int, remain, g, mu,
+              shear: bool):
+        """One step (JAX ``CellEngine._step``). Returns (state, layout,
+        geometry, dt, host dt, overflow, guard, tau_bottom, tau_top); tau
+        is None unless ``shear``. The one host sync reads dt and the
+        accumulated-drift flag together."""
+        cfg, spec = self.cfg, self.spec
+        nf = spec.n_fluid
+        dt = verlet_dt(state.vx[:nf], state.vy[:nf], cfg.c_f, cfg.h,
+                       mu / cfg.rho0, g, remain)
+        out = cg.cell_step(
+            spec, lay, geom, self._mass, state.x, state.y, state.vx,
+            state.vy, state.drho_dt, dt, cfg.rho0, cfg.p0, cfg.c_f,
+            cfg.inv_sigma0, cfg.transport_coeff, g, mu,
+            cfg.wall_visc_factor)
+        x = periodic_wrap(spec, out["x"])
+        y = out["y"]
+        if cfg.rebuild_every <= 1:
+            dt_h = dt.item()
+            lay = self._rebuild(x, y)
+            guard = self._false()
+        else:
+            # the self-healing cadence: accumulated drift past the half
+            # skin rebuilds early; a single step's crossing is the
+            # unrecoverable guard (stepper.py:445-458)
+            drift_over = cg.displacement_exceeded(spec, lay, x, y)
+            dt_h, over = torch.stack([dt, drift_over.to(dt.dtype)]).tolist()
+            if step_idx % cfg.rebuild_every == 0 or over:
+                lay = self._rebuild(x, y)
+            guard = nbr.step_displacement_exceeded(spec, state.x, state.y,
+                                                   x, y)
+        geom = cg.compute_geometry(spec, lay, x, y)
+        new_state = State(
+            x=x, y=y, vx=out["vx"], vy=out["vy"], rho=out["rho"],
+            p=out["p"], drho_dt=out["drho_dt"], fx=out["fx"], fy=out["fy"],
+            fpx=out["fpx"], fpy=out["fpy"], vol=out["vol"],
+            b11=out["b11"], b12=out["b12"], b21=out["b21"],
+            b22=out["b22"])
+        tau = (self.final_shear(new_state, lay, geom, mu) if shear
+               else (None, None))
+        return (new_state, lay, geom, dt, dt_h, lay.overflow, guard) + tau
+
+    def step(self, state: State, lay, geom, step_idx: int = 0,
+             remain=float("inf"), g=None, mu=None):
+        """One step with the wall shear on its post-rebuild layout: (state,
+        layout, geometry, dt, overflow, guard, tau_bottom, tau_top)."""
+        cfg = self.cfg
+        g = cfg.gravity_g if g is None else g
+        mu = cfg.mu if mu is None else mu
+        r = self._step(state, lay, geom, step_idx, remain, g, mu, True)
+        return r[:4] + r[5:]
+
+    def init(self, state: State):
+        """Initial layout + density/KGC/EOS pass (SPH_Poiseuille.m:165-173):
+        a zero-dt, zero-shift cell step whose kinematic outputs are
+        identities. ``drho_dt`` is kept (it carries across a restart into
+        the first half-kick)."""
+        cfg, spec = self.cfg, self.spec
+        lay = self._rebuild(state.x, state.y)
+        geom = cg.compute_geometry(spec, lay, state.x, state.y)
+        out = cg.cell_step(
+            spec, lay, geom, self._mass, state.x, state.y, state.vx,
+            state.vy, state.drho_dt,
+            torch.zeros((), dtype=self.dtype, device=self.device), cfg.rho0,
+            cfg.p0, cfg.c_f, cfg.inv_sigma0, 0.0, cfg.gravity_g, cfg.mu,
+            cfg.wall_visc_factor)
+        state = state._replace(
+            rho=out["rho"], p=out["p"], vol=out["vol"], b11=out["b11"],
+            b12=out["b12"], b21=out["b21"], b22=out["b22"])
+        return state, lay, geom, lay.overflow
+
+    def final_shear(self, state: State, lay, geom, mu):
+        """The wall shear of the loop's final carry, which equals the final
+        step's in-loop value (same post-rebuild layout and post-kick state,
+        SPH_Poiseuille.m:280-283)."""
+        return cg.cell_wall_shear(
+            self.spec, lay, geom, state.vx, state.vol, state.b11, state.b12,
+            state.b21, state.b22, mu, self.cfg.wall_visc_factor)
+
+    def run_interval(self, state: State, lay, geom, interval_len,
+                     g=None, mu=None, max_steps=None, t_local0=None,
+                     t_comp0=None, sub_len0=None, t_base=None,
+                     step_base=None, steps_done0=None) -> IntervalResult:
+        """Run to the next output point (JAX ``CellEngine._run_interval``).
+        ``max_steps``/``t_local0``/``t_comp0``/``steps_done0``: trajectory-
+        preserving step-bounded dispatch (``sub_len0`` is accepted and
+        ignored). The wall shear is observed only where it is read: every
+        step with the step log, else once from the final carry (the static
+        tau schedule, stepper.py:461-474)."""
+        del sub_len0
+        cfg, spec = self.cfg, self.spec
+        g = cfg.gravity_g if g is None else g
+        mu = cfg.mu if mu is None else mu
+        f = np.float32 if self.dtype == torch.float32 else np.float64
+        every = int(cfg.step_log_every)
+        nf = spec.n_fluid
+        interval = f(interval_len)
+        t_local = f(0.0) if t_local0 is None else f(t_local0)
+        t_comp = f(0.0) if t_comp0 is None else f(t_comp0)
+        t_base = f(0.0) if t_base is None else f(t_base)
+        step_base = 0 if step_base is None else int(step_base)
+        sd0 = 0 if steps_done0 is None else int(steps_done0)
+        logbuf = (np.zeros((STEP_LOG_CAP, STEP_LOG_COLS), dtype=f)
+                  if every > 0 else None)
+        logn = n_steps = n_syncs = 0
+        overflow = guard = self._false()
+        tau_b = tau_t = torch.zeros((), dtype=self.dtype, device=self.device)
+        while t_local < interval and (max_steps is None
+                                      or n_steps < int(max_steps)):
+            (state, lay, geom, _, dt_h, ovf, grd, tb, tt) = self._step(
+                state, lay, geom, sd0 + n_steps, interval - t_local, g, mu,
+                every > 0)
+            n_syncs += 1
+            overflow = torch.logical_or(overflow, ovf)
+            guard = torch.logical_or(guard, grd)
+            t_local, t_comp = _t_add(t_local, t_comp, f(dt_h))
+            if every > 0:
+                tau_b, tau_t = tb, tt
+                vmax = torch.sqrt(torch.max(state.vx[:nf] ** 2
+                                            + state.vy[:nf] ** 2))
+                row = torch.stack([cg.count_pairs(lay, geom).to(self.dtype),
+                                   vmax, tau_b, tau_t]).tolist()
+                logn = _log_row_update(every, logbuf, logn,
+                                       step_base + n_steps + 1,
+                                       t_base + t_local, dt_h, *row)
+            n_steps += 1
+        if every == 0:
+            tau_b, tau_t = self.final_shear(state, lay, geom, mu)
+        v_max = torch.sqrt(torch.max(state.vx[:nf] ** 2
+                                     + state.vy[:nf] ** 2))
+        n_pairs = cg.count_pairs(lay, geom)
+        return IntervalResult(
+            state=state, cands=lay, geom=geom, tau_bottom=tau_b,
+            tau_top=tau_t, n_steps=n_steps, overflow=overflow,
+            skin_guard=bool(guard), v_max=v_max, n_pairs=n_pairs,
+            t_local=t_local, t_comp=t_comp, n_syncs=n_syncs + 1,
+            step_log=logbuf, step_log_n=logn)
+
+
 class PallasCellEngine:
     """The fused cell-layout engine (the JAX package's flagship): every
     physics step runs through the three fused kernels of
@@ -157,8 +332,10 @@ class PallasCellEngine:
         self.device = torch.device(device)
         if self.device.type == "cuda" and cfg.dtype != "float32":
             raise NotImplementedError(
-                f"dtype {cfg.dtype} on CUDA is not ported: "
-                + ROADMAP_ITEM["f64_cuda"])
+                f"the fused engine's CUDA kernels are float32 only (as "
+                f"Pallas compiles f32 only), not {cfg.dtype}: run "
+                f"{cfg.dtype} through the cell-layout engine (engine "
+                f"'cellgrid', which 'auto' picks for float64)")
         self.cfg = cfg
         self.scene = scene
         self.spec = nbr.make_grid_spec(cfg, scene, lane_pack=True)
@@ -171,11 +348,17 @@ class PallasCellEngine:
         self._wall_vy = torch.zeros_like(self._wall_vx)
         self._wall_y = torch.as_tensor(scene.y, dtype=dtype,
                                        device=self.device)
+        self._shear = None
 
     def _rebuild(self, x, y, state_fields=()):
-        return pc.build_fused_layout(
+        out = pc.build_fused_layout(
             self.spec, x, y, self._mass, self._wall_vx, self._wall_vy,
-            self._wall_y, state_fields=state_fields)
+            self._wall_y, state_fields=state_fields,
+            shear=self._shear)
+        # the wall shear's rows of the first layout serve every later one
+        lay = out[0] if state_fields else out
+        self._shear = lay.shear_rows, lay.shear_tbt
+        return out
 
     def init(self, state: State):
         """Initial layout + one fused step with dt=0 and no shifting
@@ -472,11 +655,17 @@ class PallasCellEngine:
 
 
 def resolve_engine_name(cfg: SPHConfig, scene: Scene = None) -> str:
-    """"auto" and "pallas" name the fused cell-layout engine, the one
-    engine this port has, on every device; the others raise."""
-    if cfg.engine in ("auto", "pallas"):
-        return "pallas"
-    if cfg.engine in ("cellgrid", "gather"):
+    """Resolve cfg.engine: "auto" is the fused engine in float32 and the
+    cell-layout engine in float64 (the fused kernels are float32, as the
+    JAX package's Pallas kernels are; its "auto" sends float64 to
+    "cellgrid" too). Unlike the JAX package, "auto" keeps the fused engine
+    off the accelerator: its plain twins are the CPU path. "gather"
+    raises."""
+    if cfg.engine == "auto":
+        return "cellgrid" if cfg.dtype == "float64" else "pallas"
+    if cfg.engine in ("pallas", "cellgrid"):
+        return cfg.engine
+    if cfg.engine == "gather":
         raise NotImplementedError(
             f"engine {cfg.engine!r} is not ported: "
             + ROADMAP_ITEM[cfg.engine])
@@ -488,4 +677,6 @@ def make_engine(cfg: SPHConfig, scene: Scene, device):
     name = resolve_engine_name(cfg, scene)
     if name != cfg.engine:
         cfg = dataclasses.replace(cfg, engine=name)
+    if name == "cellgrid":
+        return CellEngine(cfg, scene, device)
     return PallasCellEngine(cfg, scene, device)

@@ -13,8 +13,13 @@ sweep 3 (15); per visited anchor the density and EOS (29), the gradient
 correction's inversion (63), the limiter and the kick (36) and the update
 (24). The geometry and the window test belong to sweep 0: the function
 needs them once per step, however often a form recomputes them. The
-shear: the test per candidate and, per valid wall pair, the geometry and
-its term (20 + 21).
+shear needs only the cell rows whose window holds a wall slot (the
+layout's ``shear_rows``; every other partial is +0): the test per
+candidate of their occupied anchors and, per valid wall pair, the geometry
+and its term (20 + 21); in bytes, the seven cores its windows read (x, y,
+isf, vol, wvx, wbot, wtop) over the halo'd rows those windows span, the
+five it reads at the anchors only (vx, b11, b12, b21, b22) and the two
+partials it writes over the listed rows, the row list and occ.
 """
 
 from __future__ import annotations
@@ -37,18 +42,28 @@ SWEEP_CORES = (((4, 1), (3, 1)), ((4, 0), (4, 0)), ((15, 0), (2, 6)),
 
 def pair_counts(spec, lay, xH, yH) -> dict:
     """Visited anchors, their candidates, valid pairs and valid wall pairs
-    of these position cores."""
+    of these position cores; for the shear, the listed wall rows, the
+    halo'd rows their windows span and the candidates of their occupied
+    anchors."""
     from ..ops import fused_cell as fc
     nyp = xH.shape[0] - 2
-    vis = fc._visited(spec, lay.occ, nyp).unsqueeze(-1).to(xH.dtype)
+    vis = fc._visited(spec, lay.occ, nyp)
     _, _, _, _, _, m1, mw = fc._geometry(
         spec, fc._pair(fc._anc(xH)), fc._pair(fc._anc(yH)),
         fc._win(spec, xH), fc._win(spec, yH), fc._win(spec, lay.isf_c),
         need_w=False)
+    visf = vis.unsqueeze(-1).to(xH.dtype)
     anchors = float(vis.sum()) * spec.nx
+    rows = lay.shear_rows.to(torch.int64)
+    held = (fc._anc(xH) < 0.5 * fc._BIG_X) & vis
     return dict(anchors=anchors, cands=anchors * 9 * spec.K,
-                pairs=float(torch.sum((m1 + mw) * vis)),
-                wall=float(torch.sum(mw * vis)))
+                pairs=float(torch.sum((m1 + mw) * visf)),
+                wall=float(torch.sum(mw * visf)),
+                wall_rows=rows.numel(),
+                window_rows=torch.cat([rows, rows + 1, rows + 2]
+                                      ).unique().numel(),
+                wall_cands=float(held[rows].sum()) * 9 * spec.K,
+                n_groups=lay.occ.numel())
 
 
 def _ms(ops: float, nbytes: float):
@@ -68,8 +83,12 @@ def bound(kind: str, spec, n: dict, n_steps: int = 1):
     if kind == "noop":                 # one row of x in, one of vol out
         return _ms(0.0, 2 * (spec.nx + 2) * 4)
     if kind == "shear":
-        return _ms(n["cands"] * TEST_OPS + n["wall"] * SHEAR_PAIR_OPS,
-                   12 * halo + 2 * plain)
+        row_h, row_p = spec.K * (spec.nx + 2) * 4, spec.K * spec.nx * 4
+        nbytes = (7 * n["window_rows"] * row_h
+                  + (5 + 2) * n["wall_rows"] * row_p
+                  + 4 * (n["wall_rows"] + n["n_groups"]))
+        return _ms(n["wall_cands"] * TEST_OPS + n["wall"] * SHEAR_PAIR_OPS,
+                   nbytes)
     if kind.startswith("sweep"):
         s = int(kind[5:])
         (rh, rp), (wh, wp) = SWEEP_CORES[s]

@@ -206,7 +206,7 @@ def test_engine_names_give_the_fused_engine(engine):
     assert eng.cfg.engine == "pallas"
 
 
-@pytest.mark.parametrize("engine", ["cellgrid", "gather"])
+@pytest.mark.parametrize("engine", ["gather"])
 def test_unported_engines_raise(engine):
     cfg = port_cfg(default_cfg(), engine=engine)
     with pytest.raises(NotImplementedError, match="ROADMAP.md"):
@@ -228,8 +228,9 @@ def test_step_log_raises():
 
 
 def test_float64_on_cuda_raises():
-    """The kernels are float32 (as Pallas compiles f32 only); f64 runs on
-    the CPU twins. Raised before any device is touched."""
-    cfg = port_cfg(default_cfg(), dtype="float64")
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
+    """The fused kernels are float32 (as Pallas compiles f32 only): the
+    fused engine asked for float64 on CUDA still raises, before any device
+    is touched, and names the engine that runs float64 there."""
+    cfg = port_cfg(default_cfg(), engine="pallas", dtype="float64")
+    with pytest.raises(NotImplementedError, match="cellgrid"):
         make_engine(cfg, build_scene(cfg), "cuda")
