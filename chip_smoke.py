@@ -19,12 +19,13 @@ Phases, each of which exits non-zero on failure before the last line:
    dp=0.01 channel with the shipping knobs (skin 0.3dp, rebuild_every 128,
    K=14, nx=100): the fused step at both dts, a 16-step chunk, the wall
    shear (its per-slot partials too, and two launches bit-equal). The rows
-   kernels are also held to the recompute kernels, which they should equal
-   bit for bit; then the cache form at K=48 on a small dense grid (three
-   cell columns of the tiny box at dp=0.025, up to 47 particles a cell, so
-   a window row of 144 candidates spans two pieces of the kernel's mask):
-   "full" and what "auto" picks there, the step at both dts (pair count
-   exact) and a 16-step chunk against the plain twin;
+   kernels are also held to the recompute kernels, which they must equal
+   bit for bit on every core; then the recompute and cache forms at K=48
+   on a small dense grid (three cell columns of the tiny box at dp=0.025,
+   up to 47 particles a cell, so a window row of 144 candidates spans two
+   pieces of the kernels' mask): "none", "full" and what "auto" picks
+   there, the step at both dts (pair count exact) and a 16-step chunk
+   against the plain twin;
 2b. the probes' kernels at both grids in every form: each sweep prefix
    of the step (``probes.fused_step_sweeps``) equals the kernel's full step
    bit for bit on the cores it writes, leaves the others zero and holds
@@ -69,6 +70,8 @@ Phases, each of which exits non-zero on failure before the last line:
    group size of its sweep 0 and of its sweeps 1-3
    (``fused_cell_cuda.CACHE_GROUPS0``, ``CACHE_GROUPS``; the shipped pick
    is ``fused_cell_cuda.cache_groups``), with the sweeps each size runs;
+   the recompute form's chunk, step and sweeps at each lane group size
+   (``fused_cell_cuda.WIN_GROUPS``; the pick is ``win_groups``);
    the wall shear through its wrapper and its kernel alone on its
    persistent buffers; and the no-op on a step's buffers against a row
    ``copy_``, in turns, five times each, with their spread.
@@ -108,8 +111,10 @@ DP0025 = dict(DP001, dp=0.025, neighbor_skin=0.3 * 0.025, lane_pack_nx=40)
 K48 = dict(DL=1.0, DH=0.5, dp=0.025, rho0=1.0, mu=0.1, U_bulk=0.666667,
            c_f=15.0, end_time=0.5, output_interval=0.25, sort_interval=100,
            restart_from_file=False, cell_capacity=48, lane_pack_nx=3)
-# the forms held at K=48: the cache over every rank, and what "auto" picks
-K48_FORMS = (("full", dict(geom_cache="full")), ("cache", {}))
+# the forms held at K=48: the recompute form (its window rows walked in
+# pieces), the cache over every rank, and what "auto" picks (a cache form)
+K48_FORMS = (("none", dict(geom_cache="none")),
+             ("full", dict(geom_cache="full")), ("cache", {}))
 
 # The forms of the step and the chunk, as (label, spec knobs): "cache" is
 # what "auto" picks at the grid ("full" at (a) and dp=0.025, "ring" at
@@ -347,7 +352,8 @@ def phase_kernels(device, check: Check, label: str, cfg) -> dict:
             for flabel, knobs in FORMS}
 
     # the rows kernels run the recompute arithmetic in the recompute order
-    # from shared memory: they should equal the recompute kernels
+    # from shared memory, and the recompute kernels add each anchor's terms
+    # in that order: every core must be bit-equal
     n_eq = n_all = 0
     for case, got in outs["rows"].items():
         step = case.startswith("step")
@@ -363,6 +369,9 @@ def phase_kernels(device, check: Check, label: str, cfg) -> dict:
                        record=False)
     _say(f"  rows vs recompute kernels ({label}): {n_eq} of {n_all} cores "
          "bit-equal")
+    if n_eq != n_all:
+        raise AssertionError(f"rows vs recompute kernels ({label}): only "
+                             f"{n_eq} of {n_all} cores bit-equal")
 
     # the wall shear on the stepped cores, as the engine calls it
     sc = (cfg.rho0, cfg.p0, cfg.c_f, cfg.inv_sigma0, cfg.transport_coeff,
@@ -425,9 +434,9 @@ def phase_k48(device, check: Check) -> dict:
     args = (c["xH"], c["yH"], c["vxH"], c["vyH"], c["drP"])
     for flabel, knobs in K48_FORMS:
         fspec = _form_spec(spec, knobs)
-        if fc.chunk_form(fspec, torch.float32)[0] not in ("full", "ring",
-                                                          "partial"):
-            raise AssertionError(f"k48 ({flabel}): not a cache form")
+        form = fc.chunk_form(fspec, torch.float32)[0]
+        if (form == "none") != (flabel == "none") or form == "rows":
+            raise AssertionError(f"k48 ({flabel}): resolves to {form}")
         _check_form(device, check, "k48", cfg, fspec, lay, args, dt, flabel)
     sc = (cfg.rho0, cfg.p0, cfg.c_f, cfg.inv_sigma0, cfg.transport_coeff,
           cfg.gravity_g, cfg.mu, cfg.wall_visc_factor)
@@ -1092,6 +1101,31 @@ def phase_timing(device, kern_b: dict) -> dict:
             fcc.cache_groups = pick
         _say(f"timing ({grid}) fused_*_cache by lanes per anchor, ms "
              f"(picked G0={picked[0]}, G={picked[1]}): " + "; ".join(lines))
+        # the recompute form at each lane group size: the chunk and the
+        # step's sweeps on persistent buffers
+        nspec = _form_spec(spec, dict(geom_cache="none"))
+        picked = fcc.win_groups(fc.plan(spec)[3] * spec.K * spec.nx)
+        pick = fcc.win_groups
+        lines = []
+        try:
+            for G in fcc.WIN_GROUPS:
+                fcc.win_groups = lambda n, G=G: G
+                t = min(_time(lambda: fc.fused_chunk_call(
+                    nspec, lay, *args, 0.0, 0.0, 1.0, 16, *sc), 5)
+                    for _ in range(2))
+                b = fcc.StepBuffers(nspec, R, lay, *args, dt, sc, "none", 0)
+                b.sweeps(0, 4)
+                sw = [event_ms(lambda s=s: b.sweeps(s, 1), 50, queued=True)
+                      for s in range(4)]
+                step = event_ms(lambda: b.sweeps(0, 4), 50, queued=True)
+                out[(grid, f"none:G={G}")] = (t, step, *sw)
+                lines.append(f"G={G}: chunk {t:.4f}, step on buffers "
+                             f"{step:.4f}, sweeps "
+                             + " / ".join(f"{v:.4f}" for v in sw))
+        finally:
+            fcc.win_groups = pick
+        _say(f"timing ({grid}) fused_* recompute by lanes per anchor, ms "
+             f"(picked G={picked}): " + "; ".join(lines))
     k = kern_b
     sh = k["sh"]
     p1 = _time(lambda: fc.fused_wall_shear_cores_plain(k["spec"], k["lay"],
@@ -1198,7 +1232,7 @@ def main() -> int:
         for label in kern:
             phase_probes(device, check, label, kern[label])
             phase_cache(device, check, label, kern[label])
-        phase_cache(device, check, "k48", k48, K48_FORMS)
+        phase_cache(device, check, "k48", k48, K48_FORMS[1:])
         probe_counts, probe_res = phase_probe_cli()
         probe_times = _probe_times(probe_res)
         _say(f"probe phase done in {time.perf_counter() - t1:.1f} s")

@@ -4,7 +4,8 @@
 // sph_poiseuille_flow_tpu/ops/fused_cell.py:
 //   * _step_kernel / _kernel_body (fused_cell.py:560-1078, called through
 //     _fused_call :1471-1538): one physics step as four sweeps.
-//     -> sph_step: one launch per sweep (sweep0..sweep3 below).
+//     -> sph_step: one launch per sweep (win_sweep, cache_sweep, rows_sweep
+//        below, by form).
 //   * _chunk_kernel (fused_cell.py:1550-1701, called through
 //     fused_chunk_call :1704-1783): up to n_sub whole steps per call.
 //     -> sph_chunk: a v_max reduction over the input cores, then per step
@@ -36,12 +37,35 @@
 // row group visits; ranks k >= occ keep zeroed outputs (positions pass
 // through).
 //
-// Each sweep body is written once (body0..body3) against a candidate
-// source, and the source is what the three forms change:
-//   * FORM_WIN (geom_cache "none"): one thread per anchor slot (iy, k, ix),
-//     ix fastest, walking the 3x3 windows x K candidate ranks in the
-//     (dy, dx, k) order of the JAX package's _stage (fused_cell.py:251-263)
-//     straight from the halo'd cores, recomputing the pair geometry.
+// The sweep bodies body0..body3 are written once against a candidate
+// source for the cache and rows forms, and the source is what those forms
+// change. FORM_WIN has its own bodies (body0..body3 overloads for LWin):
+// its pair terms go to the lane group's ordered sums, and the shared
+// bodies written over those compiled the cache kernels to other code (the
+// cache form's sweep 0 ran 8% slower). The two copies repeat one
+// arithmetic operation for operation; chip_smoke.py fails unless the rows
+// and the recompute kernels agree on every core bit for bit. The forms:
+//   * FORM_WIN (geom_cache "none"; the JAX package's recompute loop,
+//     _kloop_span fused_cell.py:511-533, over the window of _stage
+//     :251-263): a group of G lanes shares one anchor slot (LWin,
+//     win_sweep<S, G, ROWS>; G = wg, the wrapper's win_groups, 4-32),
+//     slots in the (iy, k, ix) order. The group walks the anchor's window
+//     straight from the halo'd cores (walk_window, which the shear and the
+//     wide cache kernels walk too) in two passes per piece of 128 window
+//     positions: every lane tests its share of the candidates
+//     for validity (x, y only; ranks past a row's occupancy bound hold
+//     empty slots and are not tested), the group ORs the valid window
+//     positions into a bit mask, and the lanes then take the valid
+//     candidates in the (dy, dx, k) window order, each computing the pair
+//     geometry and the sweep's terms of the candidate it holds. Every
+//     lane adds the round's terms in window order, lane 0's first
+//     (shuffles), so the sums are those of a one-thread walk over all 9K
+//     candidates bit for bit on a finite state: skipping an invalid
+//     candidate is exact (see FORM_CACHE). The whole window is one piece
+//     where 9K <= 128 (ROWS = 3), else each window row is walked in pieces
+//     (ROWS = 1, two or more pieces a row from K = 43); sweep 2, which
+//     walks its window twice, keeps the one-piece mask for its second
+//     walk. The form writes nothing but the step's outputs and scratch.
 //   * FORM_CACHE (geom_cache "full"/"ring"/"partial"; replaces the JAX
 //     package's geometry cache, cache_plan fused_cell.py:422, written
 //     :663-674, read :743-762, :845-861, :1005-1022): a group of lanes
@@ -89,18 +113,22 @@
 //     the 3 candidate rows x (TX+2) columns x K ranks of each field the
 //     sweep reads into shared memory once and each thread walks its 9K
 //     candidates from there, in the same (dy, dx, k) order and with the
-//     recompute arithmetic, so its outputs equal FORM_WIN's bit for bit.
+//     recompute arithmetic and the one-thread order of the sums, so its
+//     outputs equal FORM_WIN's bit for bit.
 //     Threads of a warp differ in (k, tx) with tx fastest and read
 //     candidate (dy, dx, j) at (dy*K + j)*W + tx + dx: TX consecutive words,
 //     broadcast across k, so no bank conflicts.
 //
-// What bounds it on this card: per sweep a thread of FORM_WIN issues
-// ~9K x (fields) 4-byte loads; the working set (a few MB at dp=0.01) sits
-// in the 50 MB L2, so HBM does not bound the sweeps. One thread per anchor
-// slot gives 54,600 threads at dp=0.01 and 11,760 at dp=0.025 (fewer
-// blocks than SMs): a sweep lasts one thread's serial walk over its
-// candidates, so the sweeps are latency-bound; FORM_ROWS trades L2 loads
-// for shared-memory loads. FORM_CACHE puts a group of lanes on each anchor
+// What bounds it on this card: the working set (a few MB at dp=0.01) sits
+// in the 50 MB L2, so HBM does not bound the sweeps. FORM_WIN puts G lanes
+// on each anchor (G = 4 at dp=0.01: 218k threads; 16 at dp=0.025: 188k)
+// and walks ~17 valid candidates in order, but tests every occupied
+// candidate of the window in each sweep (pass 1: two loads a candidate,
+// from L1/L2): its sweeps last about as long as the cache form's sweep 0,
+// which walks the same window, and are bound by the latency of those
+// loads and of the round's chain (geometry, field loads, shuffles), not
+// by bytes or operations. FORM_ROWS, one thread per slot, walks all 9K
+// candidates from shared memory. FORM_CACHE puts a group of lanes on each anchor
 // (8 lanes: 437k threads at dp=0.01, more than the card holds at once) and
 // walks ~17 valid candidates instead of 9K = 126 in sweeps 1-3; what
 // bounds it then is the L1/L2 traffic of the candidate gathers:
@@ -134,6 +162,7 @@ struct SphConst {
   int tx;    // FORM_ROWS: tile width in cell columns (tx * K <= 128)
   int cg0;   // FORM_CACHE: lanes per anchor slot in sweep 0 (4 .. 32)
   int cg;    // FORM_CACHE: lanes per anchor slot in sweeps 1-3 (1 .. 32)
+  int wg;    // FORM_WIN: lanes per anchor slot (4 .. 32)
   float DL, h, cut2, sigma, sig025, c225soh, c3soh, cm075soh;
   float rho0, p0, c_f, inv_sigma0, inv_rho0, tchh, h001, hh, c025h;
 };
@@ -295,12 +324,6 @@ __device__ __forceinline__ bool slot_at(const SphConst& c, const int* occ,
   return true;
 }
 
-// FORM_WIN and the shear: one thread per anchor slot over a 1-D grid
-__device__ __forceinline__ bool slot_of(const SphConst& c, const int* occ,
-                                        Slot& s) {
-  return slot_at(c, occ, s, blockIdx.x * blockDim.x + threadIdx.x);
-}
-
 // FORM_ROWS: block = (row iy, tile of tx columns from x0), thread = (k, ix)
 __device__ __forceinline__ bool tile_slot(const SphConst& c, const int* occ,
                                           Slot& s, int& x0) {
@@ -315,9 +338,11 @@ __device__ __forceinline__ bool tile_slot(const SphConst& c, const int* occ,
   return true;
 }
 
-// FORM_CACHE: G lanes (a power of two <= 32) share one anchor slot. A
-// per-anchor sum is the xor-butterfly of the lanes' partial sums: a fixed
-// order, and every lane ends with the same bits (a + b == b + a).
+// FORM_CACHE and FORM_WIN: G lanes (a power of two <= 32) share one anchor
+// slot. In FORM_CACHE a per-anchor sum is the xor-butterfly of the lanes'
+// partial sums: a fixed order, and every lane ends with the same bits (a +
+// b == b + a). FORM_WIN adds the terms in window order instead (geo_sum
+// below).
 template <int G>
 struct Lanes {
   int lane;       // 0 .. G-1
@@ -329,7 +354,7 @@ struct Lanes {
   __device__ __forceinline__ bool lead() const { return lane == 0; }
 };
 
-// slots in the (iy, k, ix) order of slot_of, G consecutive threads each;
+// slots in the (iy, k, ix) order of slot_at, G consecutive threads each;
 // a 128-thread block holds whole groups, so a group never straddles warps
 template <int G>
 __device__ __forceinline__ bool group_slot(const SphConst& c, const int* occ,
@@ -340,28 +365,32 @@ __device__ __forceinline__ bool group_slot(const SphConst& c, const int* occ,
   return slot_at(c, occ, s, (blockIdx.x * blockDim.x + threadIdx.x) / G);
 }
 
+// a window walk's bit mask of kPiece window positions (walk_window)
+constexpr int kMaskWords = 4;
+constexpr int kPiece = 32 * kMaskWords;
+
+struct WinMask {
+  unsigned m[kMaskWords];
+  bool set;
+};
+
 // ---- candidate sources ----
 // Each gives the fields of a candidate (ld), its per-anchor sum (sum: the
-// thread's own for the one-thread forms) and whether this thread writes
-// the anchor's outputs (lead).
+// thread's own for the one-thread form; FORM_WIN's sums are its own, see
+// geo_sum) and whether this thread writes the anchor's outputs (lead).
 
-// FORM_WIN: the 9K candidates straight from the halo'd cores
-struct Win {
+// FORM_WIN: the anchor's window straight from the halo'd cores, walked by
+// its group of G lanes; ROWS: window rows per piece of the walk (3 when
+// the whole window fits one piece, 9K <= 128, else 1; walk_window); memo:
+// the window's mask, kept by a sweep's first walk for its second (ROWS = 3)
+template <int G, int ROWS>
+struct LWin : Lanes<G> {
   const SphConst& c;
   const StepBufs& b;
   int iy, ix;
+  mutable WinMask memo{};
   template <int F>
   __device__ __forceinline__ float ld(int i) const { return core<F>(b)[i]; }
-  __device__ __forceinline__ float sum(float v) const { return v; }
-  __device__ __forceinline__ bool lead() const { return true; }
-  template <class Fn>
-  __device__ __forceinline__ void each(Fn&& fn) const {
-    for (int dy = 0; dy < 3; ++dy)
-      for (int dx = 0; dx < 3; ++dx) {
-        int hv = hix(c, iy + dy, 0, ix + dx);
-        for (int j = 0; j < c.K; ++j, hv += c.nx + 2) fn(hv);
-      }
-  }
 };
 
 // the fields a sweep reads from its candidates, in shared-memory order
@@ -512,24 +541,6 @@ __device__ __forceinline__ void geo_each(const SphConst& c, const Src& src,
   });
 }
 
-// The wide cache kernels (K > 42) and the shear: the group's walk of an
-// anchor's window, ROWS window rows at a time (the cache: one; the shear:
-// all three), in pieces of kPiece = 32*kMaskWords window positions (w =
-// (dr*3 + dx)*K + j over the rows dr of the span; two pieces a row from
-// K = 43, one for the shear's whole window when 9K <= 128),
-// in two passes per piece. Pass 1 tests every candidate of the piece
-// (test(i)), the lanes taking the span's candidates dx fastest, so that the
-// group's loads fall on few cache lines, and ORs the piece's positions that
-// pass into a bit mask that every lane of the group then holds. Pass 2 takes
-// them in window order, lane l the l-th, (l+G)-th ...: fn(on, i, p) is
-// called by every lane of the group in step, with on set where the lane
-// holds a candidate, i its halo'd-core index and p its position among the
-// window's listed candidates. Spans and pieces are taken in window order, so
-// the listed candidates keep the (dy, dx, j) window order for every K.
-// Returns how many were listed.
-constexpr int kMaskWords = 4;
-constexpr int kPiece = 32 * kMaskWords;
-
 // the window position of set bit p (p < popcount) of a piece's mask
 __device__ __forceinline__ int nth_bit(const unsigned (&m)[kMaskWords],
                                        int p) {
@@ -544,67 +555,77 @@ __device__ __forceinline__ int nth_bit(const unsigned (&m)[kMaskWords],
   return -1;
 }
 
+// The group's walk of an anchor's window (FORM_WIN's sweeps, the wide cache
+// kernels for K > 42, the shear), ROWS window rows a span (3 where the
+// whole window fits one piece, 9K <= 128; else 1), in pieces of kPiece =
+// 32*kMaskWords window positions (w = (dr*3 + dx)*K + j over the rows dr
+// of the span; two pieces a row from K = 43), in two passes per piece.
+// Pass 1 takes the span's rows one at a time and tests (test(i)) the
+// candidates of ranks below the row's occupancy bound (occ of its row
+// group; the ranks past it and the y-halo rows hold empty slots, x = 1e9,
+// which no test passes), the lanes taking them dx fastest, so that the
+// group's loads fall on few cache lines, and ORs the piece's positions that
+// pass into a bit mask that every lane of the group then holds. Pass 2
+// takes them in window order, lane l the l-th, (l+G)-th ..., decoding a
+// position with compares, not divisions: fn(on, i, p) is called by every
+// lane of the group in step, with on set where the lane holds a candidate,
+// i its halo'd-core index and p its position among the window's listed
+// candidates. Spans and pieces are taken in window order, so the listed
+// candidates keep the (dy, dx, j) window order for every K. With memo
+// (ROWS = 3), the window's mask is kept by the first walk and used by the
+// next with the same test, which skips pass 1 (FORM_WIN's sweep 2 walks
+// its window twice). Returns how many were listed.
 template <int G, int ROWS, class Test, class Fn>
-__device__ __forceinline__ int walk_window(const SphConst& c,
+__device__ __forceinline__ int walk_window(const SphConst& c, const int* occ,
                                            const Lanes<G>& g, int iy, int ix,
-                                           Test&& test, Fn&& fn) {
-  const int K = c.K, R3 = 3 * K, W = ROWS * R3;
+                                           WinMask* memo, Test&& test,
+                                           Fn&& fn) {
+  const int K = c.K, R3 = 3 * K, W = ROWS * R3, nx2 = c.nx + 2;
   int n = 0;
-  // the halo'd-core index of span position (dr, dx, j)
-  auto at = [&](int dy0, int dr, int dx, int j) {
-    return ((iy + dy0 + dr) * K + j) * (c.nx + 2) + ix + dx;
-  };
   for (int dy0 = 0; dy0 < 3; dy0 += ROWS) {
-    for (int b = 0; b < W; b += kPiece) {
+    for (int b0 = 0; b0 < W; b0 += kPiece) {
       unsigned m[kMaskWords] = {};
-      // the piece position of candidate t of the span if it passes, else
-      // -1; PIECES: the span needs more than one piece, so a position may
-      // lie outside this one (no range test when one piece holds it)
-      auto probe = [&](int t, auto pieces) {
-        int dr = 0, u = t;
-        if constexpr (ROWS > 1) {
-          dr = t / R3;
-          u = t - dr * R3;
+      if (ROWS == 3 && memo && memo->set) {
+#pragma unroll
+        for (int q = 0; q < kMaskWords; ++q) m[q] = memo->m[q];
+      } else {
+        for (int dr = 0; dr < ROWS; ++dr) {
+          const int row = iy + dy0 + dr;  // halo'd cell row
+          const int jn = row >= 1 && row <= c.nyp ? occ[(row - 1) / c.R] : 0;
+#pragma unroll 1
+          for (int u = g.lane; u < 3 * jn; u += G) {
+            const int j = u / 3, dx = u - 3 * j;
+            const int w = dr * R3 + dx * K + j - b0;
+            if (W > kPiece && (w < 0 || w >= kPiece)) continue;
+            if (test((row * K + j) * nx2 + ix + dx)) {
+#pragma unroll
+              for (int q = 0; q < kMaskWords; ++q)
+                if ((w >> 5) == q) m[q] |= 1u << (w & 31);
+            }
+          }
         }
-        const int j = u / 3, dx = u - 3 * j;
-        const int w = dr * R3 + dx * K + j - b;
-        if constexpr (decltype(pieces)::value) {
-          if (w < 0 || w >= kPiece) return -1;
-        }
-        return test(at(dy0, dr, dx, j)) ? w : -1;
-      };
-      auto mark = [&m](int w) {
-        if (w < 0) return;
 #pragma unroll
         for (int q = 0; q < kMaskWords; ++q)
-          if ((w >> 5) == q) m[q] |= 1u << (w & 31);
-      };
-      if (W > kPiece) {
-        for (int t = g.lane; t < W; t += G) mark(probe(t, std::true_type{}));
-      } else {
-#pragma unroll 4
-        for (int t = g.lane; t < W; t += G)
-          mark(probe(t, std::false_type{}));
+          for (int o = G / 2; o > 0; o >>= 1)
+            m[q] |= __shfl_xor_sync(g.mask, m[q], o, G);
+        if (ROWS == 3 && memo) {
+#pragma unroll
+          for (int q = 0; q < kMaskWords; ++q) memo->m[q] = m[q];
+          memo->set = true;
+        }
       }
       int cnt = 0;
 #pragma unroll
-      for (int q = 0; q < kMaskWords; ++q) {
-        for (int o = G / 2; o > 0; o >>= 1)
-          m[q] |= __shfl_xor_sync(g.mask, m[q], o, G);
-        cnt += __popc(m[q]);
-      }
+      for (int q = 0; q < kMaskWords; ++q) cnt += __popc(m[q]);
       for (int p0 = 0; p0 < cnt; p0 += G) {
         const int p = p0 + g.lane;
         int i = -1;
         if (p < cnt) {
-          const int w = b + nth_bit(m, p);
-          int dr = 0, u = w;
-          if constexpr (ROWS > 1) {
-            dr = w / R3;
-            u = w - dr * R3;
-          }
-          const int dx = u / K, j = u - dx * K;
-          i = at(dy0, dr, dx, j);
+          const int w = b0 + nth_bit(m, p);
+          const int dr = ROWS == 1 ? 0 : (w >= R3) + (w >= 2 * R3);
+          const int u = w - dr * R3;
+          const int dx = (u >= K) + (u >= 2 * K), j = u - dx * K;
+          i = ((iy + dy0 + dr) * K + j) * nx2 + ix + dx;
         }
         fn(p < cnt, i, n + p);
       }
@@ -650,7 +671,7 @@ __device__ __forceinline__ void geo_each(const SphConst& c,
   if (xa < kParked) {
     if constexpr (WIDE) {
       n = walk_window<G, 1>(
-          c, src, src.iy, src.ix,
+          c, b.occ, src, src.iy, src.ix, nullptr,
           [&](int i) { return in_range(c, xa, ya, b.x[i], b.y[i]); },
           [&](bool on, int i, int p) {
             if (!on) return;
@@ -1004,57 +1025,305 @@ __device__ __forceinline__ void body3(const SphConst& c, const StepBufs& b,
   b.y2[p] = y2;
 }
 
-// one sweep in one form: pick the anchor slot and its candidate source,
-// then run the sweep's body
-template <int FORM, class FS, class Body>
-__device__ __forceinline__ void run_sweep(const SphConst& c,
-                                          const StepBufs& b,
-                                          const CacheBufs& cb, Body&& body) {
-  if (b.dyn[4] == 0.0f) return;  // the chunk's interval or n_sub is done
-  Slot s;
-  if constexpr (FORM == FORM_ROWS) {
-    extern __shared__ float tile_sm[];
-    int x0;
-    const bool on = tile_slot(c, b.occ, s, x0);
-    FS::stage(c, b, tile_sm, s.iy, x0);
-    __syncthreads();
-    if (on) body(s, Tile<FS>{c, tile_sm, s.ix - x0});
-  } else {
-    if (!slot_of(c, b.occ, s)) return;
-    body(s, Win{c, b, s.iy, s.ix});
+// ---- FORM_WIN: the sweeps' bodies again, with the pair terms handed to
+//      the lane group's ordered sums (geo_sum, kgc_sum, pair_sum below).
+//      They repeat body0..body3's arithmetic operation for operation, and
+//      chip_smoke.py holds their outputs to the rows kernels' (body0..
+//      body3 from shared memory, one thread a slot) bit for bit on every
+//      core. body0..body3 stay as they are for the cache and rows forms:
+//      written over these, their kernels compiled to other code (the cache
+//      form's sweep 0 ran 8% slower). ----
+
+// FORM_WIN: the group walks the anchor's window (walk_window), each lane
+// computes the terms of the valid candidate it holds, and every lane adds
+// the round's terms in window order, lane 0's first: the shuffles give all
+// lanes the same values, so all end with the same sums, and those are the
+// sums of a one-thread walk over all 9K candidates in window order bit for
+// bit on a finite state (an invalid candidate's terms are +-0, which leave
+// a sum that starts at +0 as it is). An anchor parked at x = 1e9 (an empty
+// slot) has no valid candidate: its sums stay +0.
+template <int N, int G, int ROWS, class Fn>
+__device__ __forceinline__ void geo_sum(const SphConst& c,
+                                        const LWin<G, ROWS>& src, float xa,
+                                        float ya, bool need_w, float (&s)[N],
+                                        Fn&& fn) {
+  if (xa >= kParked) return;
+  const StepBufs& b = src.b;
+  walk_window<G, ROWS>(
+      c, b.occ, src, src.iy, src.ix, &src.memo,
+      [&](int i) { return in_range(c, xa, ya, b.x[i], b.y[i]); },
+      [&](bool on, int i, int) {
+        float t[N];
+#pragma unroll
+        for (int q = 0; q < N; ++q) t[q] = 0.0f;
+        if (on)
+          fn(i, geometry(c, xa, ya, b.x[i], b.y[i], b.isf[i], need_w), t);
+        // the lanes that hold a candidate are lanes 0 .. m-1
+        const int m = __popc(__ballot_sync(src.mask, on) & src.mask);
+        for (int l = 0; l < m; ++l) {
+#pragma unroll
+          for (int q = 0; q < N; ++q)
+            s[q] += __shfl_sync(src.mask, t[q], l, G);
+        }
+      });
+}
+
+// sweep 1: (rf, ex, ey) per pair, rf = r*dw*Vol_j*(m1+mw)
+template <int N, int G, int ROWS, class Fn>
+__device__ __forceinline__ void kgc_sum(const SphConst& c,
+                                        const LWin<G, ROWS>& src, float xa,
+                                        float ya, float (&s)[N], Fn&& fn) {
+  geo_sum(c, src, xa, ya, false, s,
+          [&](int i, const Geo& g, auto& t) {
+            fn(g.r * g.dw * src.template ld<F_VOL>(i) * (g.m1 + g.mw), g.ex,
+               g.ey, t);
+          });
+}
+
+// sweeps 2-3: (i, r, ex, ey, dw*Vol_j*m1, dw*Vol_j*mw) per pair
+template <int N, int G, int ROWS, class Fn>
+__device__ __forceinline__ void pair_sum(const SphConst& c,
+                                         const LWin<G, ROWS>& src, float xa,
+                                         float ya, float (&s)[N], Fn&& fn) {
+  geo_sum(c, src, xa, ya, false, s,
+          [&](int i, const Geo& g, auto& t) {
+            const float dwv = g.dw * src.template ld<F_VOL>(i);
+            fn(i, g.r, g.ex, g.ey, dwv * g.m1, dwv * g.mw, t);
+          });
+}
+
+// ---- sweep 0: density, Vol, half-kick EOS, pair count
+//      (sph_physics_mex.c:178-234, :857-865; fused_cell.py:643-729) ----
+template <int G, int ROWS>
+__device__ __forceinline__ void body0(const SphConst& c, const StepBufs& b,
+                                      const Slot& s,
+                                      const LWin<G, ROWS>& src) {
+  float vol = 0.0f, rho_half = 0.0f, p_half = 0.0f, cnt = 0.0f;
+  if (s.visited) {
+    const float dt = b.dyn[0];
+    const float xa = b.x[s.ha], ya = b.y[s.ha], af = b.isf[s.ha];
+    float sums[4] = {0.0f, 0.0f, 0.0f, 0.0f};
+    geo_sum(c, src, xa, ya, true, sums,
+            [&](int i, const Geo& g, auto& t) {
+              t[0] = g.w * g.m1;
+              t[1] = g.w * (src.template ld<F_MASS>(i) * c.inv_rho0) * g.mw;
+              t[2] = g.m1;
+              t[3] = g.mw;
+            });
+    const float s_in = sums[0], s_ct = sums[1], s_m1 = sums[2],
+                s_mw = sums[3];
+    const float sig_inner = c.sigma + s_in;  // W(0) = sigma
+    const float massa = b.mass[s.ha];
+    const float mass_safe = massa > 0.0f ? massa : 1.0f;
+    float rho = sig_inner * c.rho0 * c.inv_sigma0 +
+                s_ct * c.rho0 * c.rho0 * c.inv_sigma0 / mass_safe;
+    rho = rho <= 1e-12f ? c.rho0 : rho;
+    rho = af > 0.0f ? rho : c.rho0;  // walls keep rho0
+    vol = mass_safe / rho;
+    const float dra = b.dr[pix(c, s.iy, s.k, s.ix)];
+    const float rk = rho + 0.5f * dt * dra;
+    rho_half = af > 0.0f ? (rk < 1e-10f ? c.rho0 : rk) : rho;
+    p_half = af > 0.0f ? c.p0 * (rho_half / c.rho0 - 1.0f) : 0.0f;
+    cnt = af * (0.5f * s_m1 + s_mw);
   }
+  if (!src.lead()) return;
+  store_h(c, b.vol, s.iy, s.k, s.ix, vol);
+  store_h(c, b.rhoH, s.iy, s.k, s.ix, rho_half);
+  store_h(c, b.pH, s.iy, s.k, s.ix, p_half);
+  b.cnt[pix(c, s.iy, s.k, s.ix)] = cnt;
 }
 
-template <int FORM>
-__global__ void __launch_bounds__(128)
-    sweep0(SphConst c, StepBufs b, CacheBufs cb) {
-  run_sweep<FORM, Fields0>(c, b, cb, [&](const Slot& s, const auto& src) {
-    body0(c, b, s, src);
-  });
+// ---- sweep 1: kernel gradient correction B (c:239-365;
+//      fused_cell.py:731-816) ----
+template <int G, int ROWS>
+__device__ __forceinline__ void body1(const SphConst& c, const StepBufs& b,
+                                      const Slot& s,
+                                      const LWin<G, ROWS>& src) {
+  float o11 = 0.0f, o12 = 0.0f, o21 = 0.0f, o22 = 0.0f;
+  if (s.visited) {
+    const float xa = b.x[s.ha], ya = b.y[s.ha], af = b.isf[s.ha];
+    float sums[3] = {0.0f, 0.0f, 0.0f};
+    kgc_sum(c, src, xa, ya, sums,
+            [&](float rf, float ex, float ey, auto& t) {
+              t[0] = rf * ex * ex;
+              t[1] = rf * ex * ey;
+              t[2] = rf * ey * ey;
+            });
+    const float a11 = -sums[0], a12 = -sums[1], a22 = -sums[2];
+    const float a21 = a12;
+    // regularized pseudo-inverse blend (c:321-365)
+    const float ata11 = a11 * a11 + a21 * a21 + 1e-8f;
+    const float ata12 = a11 * a12 + a21 * a22;
+    const float ata22 = a12 * a12 + a22 * a22 + 1e-8f;
+    const float det_m = ata11 * ata22 - ata12 * ata12;
+    const bool degen = fabsf(det_m) < 1e-20f;
+    const float det_safe = degen ? 1.0f : det_m;
+    const float im11 = ata22 / det_safe;
+    const float im12 = -ata12 / det_safe;
+    const float im22 = ata11 / det_safe;
+    const float p11 = degen ? 1.0f : im11 * a11 + im12 * a12;
+    const float p12 = degen ? 0.0f : im11 * a21 + im12 * a22;
+    const float p21 = degen ? 0.0f : im12 * a11 + im22 * a12;
+    const float p22 = degen ? 1.0f : im12 * a21 + im22 * a22;
+    const float det_a = a11 * a22 - a12 * a21;
+    const float det_sqr = fmaxf(1.0f - det_a, 0.0f);
+    const float denom = det_a + det_sqr;
+    const bool small = fabsf(denom) < 1e-12f;
+    const float denom_safe = small ? 1.0f : denom;
+    const float w1 = small ? 0.0f : det_a / denom_safe;
+    const float w2 = small ? 1.0f : det_sqr / denom_safe;
+    const bool fl = af > 0.0f;
+    o11 = fl ? w1 * p11 + w2 : 1.0f;
+    o12 = fl ? w1 * p12 : 0.0f;
+    o21 = fl ? w1 * p21 : 0.0f;
+    o22 = fl ? w1 * p22 + w2 : 1.0f;
+  }
+  if (!src.lead()) return;
+  store_h(c, b.b11, s.iy, s.k, s.ix, o11);
+  store_h(c, b.b12, s.iy, s.k, s.ix, o12);
+  store_h(c, b.b21, s.iy, s.k, s.ix, o21);
+  store_h(c, b.b22, s.iy, s.k, s.ix, o22);
 }
 
-template <int FORM>
-__global__ void __launch_bounds__(128)
-    sweep1(SphConst c, StepBufs b, CacheBufs cb) {
-  run_sweep<FORM, Fields1>(c, b, cb, [&](const Slot& s, const auto& src) {
-    body1(c, b, s, src);
-  });
+// ---- sweep 2: viscous + gravity, shifting, Riemann pressure, kick
+//      (c:466-545, :633-709, :867-957, :1388-1409;
+//      fused_cell.py:818-965). Two candidate passes: the virtual wall
+//      pressure needs the anchor's completed prior force. ----
+template <int G, int ROWS>
+__device__ __forceinline__ void body2(const SphConst& c, const StepBufs& b,
+                                      const Slot& s,
+                                      const LWin<G, ROWS>& src) {
+  float vx2 = 0.0f, vy2 = 0.0f, fx = 0.0f, fy = 0.0f, fpx = 0.0f, fpy = 0.0f,
+        dxs = 0.0f, dys = 0.0f;
+  if (s.visited) {
+    const float dt = b.dyn[0], g = b.dyn[1], mu = b.dyn[2], wf = b.dyn[3];
+    const int ha = s.ha;
+    const float xa = b.x[ha], ya = b.y[ha], af = b.isf[ha];
+    const float vola = b.vol[ha];
+    const float vxa = b.vx[ha], vya = b.vy[ha];
+    const float b11a = b.b11[ha], b12a = b.b12[ha], b21a = b.b21[ha],
+                b22a = b.b22[ha];
+    const float rhoha = b.rhoH[ha], pha = b.pH[ha];
+    const float massa = b.mass[ha];
+    const float mass_safe = massa > 0.0f ? massa : 1.0f;
+
+    float s1[4] = {0.0f, 0.0f, 0.0f, 0.0f};
+    pair_sum(c, src, xa, ya, s1, [&](int i, float r, float ex, float ey,
+                                     float dwv1, float dwvw, auto& t) {
+      const float inv_denom = 1.0f / (r + c.h001);
+      const float tx_f = (b11a + src.template ld<F_B11>(i)) * ex +
+                         (b12a + src.template ld<F_B12>(i)) * ey;
+      const float ty_f = (b21a + src.template ld<F_B21>(i)) * ex +
+                         (b22a + src.template ld<F_B22>(i)) * ey;
+      const float tx_w = b11a * ex + b12a * ey;
+      const float ty_w = b21a * ex + b22a * ey;
+      const float ebe_f = ex * tx_f + ey * ty_f;
+      const float ebe_w = ex * tx_w + ey * ty_w;
+      const float cf_p = ebe_f * mu * inv_denom * dwv1;
+      const float cw_p = wf * ebe_w * mu * inv_denom * dwvw;
+      t[0] = cf_p * (vxa - src.template ld<F_VX>(i)) +
+             cw_p * (vxa - src.template ld<F_WVX>(i));
+      t[1] = cf_p * (vya - src.template ld<F_VY>(i)) +
+             cw_p * (vya - src.template ld<F_WVY>(i));
+      t[2] = -dwv1 * tx_f - 2.0f * dwvw * tx_w;
+      t[3] = -dwv1 * ty_f - 2.0f * dwvw * ty_w;
+    });
+    const float acc_x = s1[0], acc_y = s1[1], inc_x = s1[2], inc_y = s1[3];
+    const bool fl = af > 0.0f;
+    fpx = fl ? acc_x * vola + massa * g : 0.0f;
+    fpy = fl ? acc_y * vola : 0.0f;
+    const float lim = fminf(
+        fmaxf(100.0f * (inc_x * inc_x + inc_y * inc_y) / c.hh, 0.0f), 1.0f);
+    const float shift = c.tchh * lim * af;
+    dxs = shift * inc_x;
+    dys = shift * inc_y;
+
+    const float ax_prior = fpx / mass_safe, ay_prior = fpy / mass_safe;
+    float s2[2] = {0.0f, 0.0f};
+    pair_sum(c, src, xa, ya, s2, [&](int i, float r, float ex, float ey,
+                                     float dwv1, float dwvw, auto& t) {
+      const float tx_f = (b11a + src.template ld<F_B11>(i)) * ex +
+                         (b12a + src.template ld<F_B12>(i)) * ey;
+      const float ty_f = (b21a + src.template ld<F_B21>(i)) * ex +
+                         (b22a + src.template ld<F_B22>(i)) * ey;
+      const float tx_w = b11a * ex + b12a * ey;
+      const float ty_w = b21a * ex + b22a * ey;
+      const float vxv = src.template ld<F_VX>(i);
+      const float vyv = src.template ld<F_VY>(i);
+      const float rho_bar = 0.5f * (rhoha + src.template ld<F_RHOH>(i));
+      const float un_l = vxa * ex + vya * ey;
+      const float un_r = vxv * ex + vyv * ey;
+      const float beta = fminf(3.0f * fmaxf(un_l - un_r, 0.0f), c.c_f);
+      const float p_avg = 0.5f * (pha + src.template ld<F_PH>(i));
+      const float p_star = p_avg + 0.5f * beta * rho_bar * (un_l - un_r);
+      const float p_face = 0.5f * (p_avg + p_star);
+      const float face_acc = -(ax_prior * ex + ay_prior * ey);
+      const float p_wall = pha + rhoha * r * fmaxf(0.0f, face_acc);
+      t[0] = p_face * tx_f * dwv1 + (pha + p_wall) * tx_w * dwvw;
+      t[1] = p_face * ty_f * dwv1 + (pha + p_wall) * ty_w * dwvw;
+    });
+    const float pacc_x = s2[0], pacc_y = s2[1];
+    fx = fl ? -pacc_x * vola : 0.0f;
+    fy = fl ? -pacc_y * vola : 0.0f;
+    const float inv_m = 1.0f / mass_safe;
+    vx2 = fl ? vxa + (fpx + fx) * inv_m * dt : 0.0f;
+    vy2 = fl ? vya + (fpy + fy) * inv_m * dt : 0.0f;
+  }
+  if (!src.lead()) return;
+  const int p = pix(c, s.iy, s.k, s.ix);
+  store_h(c, b.vx2, s.iy, s.k, s.ix, vx2);
+  store_h(c, b.vy2, s.iy, s.k, s.ix, vy2);
+  b.fx[p] = fx;
+  b.fy[p] = fy;
+  b.fpx[p] = fpx;
+  b.fpy[p] = fpy;
+  b.dxs[p] = dxs;
+  b.dys[p] = dys;
 }
 
-template <int FORM>
-__global__ void __launch_bounds__(128)
-    sweep2(SphConst c, StepBufs b, CacheBufs cb) {
-  run_sweep<FORM, Fields2>(c, b, cb, [&](const Slot& s, const auto& src) {
-    body2(c, b, s, src);
-  });
-}
-
-template <int FORM>
-__global__ void __launch_bounds__(128)
-    sweep3(SphConst c, StepBufs b, CacheBufs cb) {
-  run_sweep<FORM, Fields3>(c, b, cb, [&](const Slot& s, const auto& src) {
-    body3(c, b, s, src);
-  });
+// ---- sweep 3: continuity, final rho/p, positions (c:1073-1116,
+//      :1429-1451; fused_cell.py:967-1078) ----
+template <int G, int ROWS>
+__device__ __forceinline__ void body3(const SphConst& c, const StepBufs& b,
+                                      const Slot& s,
+                                      const LWin<G, ROWS>& src) {
+  const int ha = s.ha, p = pix(c, s.iy, s.k, s.ix);
+  const float xa = b.x[ha], ya = b.y[ha];
+  float rho_new = 0.0f, p_new = 0.0f, drho_new = 0.0f, x2 = xa, y2 = ya;
+  if (s.visited) {
+    const float dt = b.dyn[0];
+    const float af = b.isf[ha];
+    const float vx2a = b.vx2[ha], vy2a = b.vy2[ha];
+    const float rhoha = b.rhoH[ha];
+    float s1[1] = {0.0f};
+    pair_sum(c, src, xa, ya, s1, [&](int i, float, float ex, float ey,
+                                     float dwv1, float dwvw, auto& t) {
+      const float u_jump_f = (vx2a - src.template ld<F_VX2>(i)) * ex +
+                             (vy2a - src.template ld<F_VY2>(i)) * ey;
+      const float u_jump_w =
+          2.0f * ((vx2a - src.template ld<F_WVX>(i)) * ex +
+                  (vy2a - src.template ld<F_WVY>(i)) * ey);
+      t[0] = u_jump_f * dwv1 + u_jump_w * dwvw;
+    });
+    const float rate = s1[0];
+    const bool fl = af > 0.0f;
+    drho_new = fl ? rate * rhoha : 0.0f;
+    float rn = rhoha + 0.5f * dt * drho_new;
+    rn = rn < 1e-10f ? c.rho0 : rn;
+    rho_new = fl ? rn : rhoha;
+    p_new = fl ? c.p0 * (rho_new / c.rho0 - 1.0f) : 0.0f;
+    // shift + half drift (old v) + half drift (new v); walls never move
+    const float xs = xa + b.dxs[p] + 0.5f * dt * (b.vx[ha] + vx2a);
+    const float ys = ya + b.dys[p] + 0.5f * dt * (b.vy[ha] + vy2a);
+    x2 = fl ? xs : xa;
+    y2 = fl ? ys : ya;
+  }
+  if (!src.lead()) return;
+  b.rho[p] = rho_new;
+  b.p[p] = p_new;
+  b.drho[p] = drho_new;
+  b.x2[p] = x2;
+  b.y2[p] = y2;
 }
 
 template <int S, class Src>
@@ -1064,6 +1333,44 @@ __device__ __forceinline__ void body(const SphConst& c, const StepBufs& b,
   else if constexpr (S == 1) body1(c, b, s, src);
   else if constexpr (S == 2) body2(c, b, s, src);
   else body3(c, b, s, src);
+}
+
+// the fields sweep S reads from its candidates
+template <int S>
+using SweepFields = std::conditional_t<
+    S == 0, Fields0,
+    std::conditional_t<S == 1, Fields1,
+                       std::conditional_t<S == 2, Fields2, Fields3>>>;
+
+// FORM_ROWS sweep S: the block stages its window rows, then each thread
+// walks its anchor's 9K candidates from shared memory
+template <int S>
+__global__ void __launch_bounds__(128)
+    rows_sweep(SphConst c, StepBufs b) {
+  if (b.dyn[4] == 0.0f) return;  // the chunk's interval or n_sub is done
+  using FS = SweepFields<S>;
+  extern __shared__ float tile_sm[];
+  Slot s;
+  int x0;
+  const bool on = tile_slot(c, b.occ, s, x0);
+  FS::stage(c, b, tile_sm, s.iy, x0);
+  __syncthreads();
+  if (on) body<S>(c, b, s, Tile<FS>{c, tile_sm, s.ix - x0});
+}
+
+// FORM_WIN sweep S, G lanes per anchor slot (slots in the (iy, k, ix)
+// order, ix fastest). The walk is latency-bound, so the kernels are held
+// to 64 registers (eight blocks of 128 threads an SM) and pass 1 is not
+// unrolled: more warps in flight beat the few spills that costs, at
+// dp=0.01 and 0.025 (PERF.md; the compiler's own budget was up to 96)
+template <int S, int G, int ROWS>
+__global__ void __launch_bounds__(128, 8)
+    win_sweep(SphConst c, StepBufs b) {
+  if (b.dyn[4] == 0.0f) return;  // the chunk's interval or n_sub is done
+  Slot s;
+  Lanes<G> g;
+  if (!group_slot<G>(c, b.occ, s, g)) return;
+  body<S>(c, b, s, LWin<G, ROWS>{g, c, b, s.iy, s.ix});
 }
 
 // FORM_CACHE sweep S, G lanes per anchor slot: a cached slot's sweep 0
@@ -1211,8 +1518,9 @@ __global__ void __launch_bounds__(256) refresh(SphConst c, StepBufs b,
 //      wall slot, listed from the wall cores), kShearG lanes per anchor
 //      slot, and the slots of every other row keep the +0 their buffer was
 //      zeroed with. The lanes walk the whole 3x3 window at once
-//      (walk_window over three rows: one piece of the mask when 9K <= 128)
-//      and pass only the valid candidates that are not fluid (isf == 0:
+//      (walk_window over three rows: one piece of the mask when 9K <= 128;
+//      ranks below each row's occupancy bound) and pass only the valid
+//      candidates that are not fluid (isf == 0:
 //      the wall slots, and the empty ones, which the range test drops), x
 //      and y loaded only for those; the lead lane adds the group's terms
 //      one by one in window order, the order in which the
@@ -1251,7 +1559,7 @@ __global__ void __launch_bounds__(128) shear(SphConst c, ShearBufs b) {
     const float b11a = b.b11[ha], b12a = b.b12[ha], b21a = b.b21[ha],
                 b22a = b.b22[ha];
     walk_window<G, 3>(
-        c, g, s.iy, s.ix,
+        c, b.occ, g, s.iy, s.ix, nullptr,
         [&](int i) {
           return b.isf[i] == 0.0f && in_range(c, xa, ya, b.x[i], b.y[i]);
         },
@@ -1287,9 +1595,18 @@ __global__ void __launch_bounds__(128) shear(SphConst c, ShearBufs b) {
 
 // ---- the fixed cost of one call over the step's buffers (the TPU probe's
 //      noop_kernel, experiments/profile_r3.py:170-171): vol[0, 0, :] =
-//      x[0, 0, :], nx + 2 floats; every other buffer is left as it is ----
-__global__ void __launch_bounds__(128) noop(SphConst c, StepBufs b) {
-  for (int i = threadIdx.x; i < c.nx + 2; i += blockDim.x) b.vol[i] = b.x[i];
+//      x[0, 0, :], n = nx + 2 floats; every other buffer is left as it is.
+//      On the TPU that fixed cost is the DMA of every input into VMEM; the
+//      card has no counterpart of it, so the kernel takes only the two rows
+//      and their length (20 bytes of parameters, where the step's constants
+//      and buffer table are 368). What bounds a copy this small is the
+//      launch: back to back, its time is the launch latency, which neither
+//      the parameter block's size nor the block's shape nor the loop moved
+//      below a row copy_'s cudaMemcpyAsync (PERF.md). It is launched as the
+//      sweeps are, plainly, so that it measures what their launches cost. ----
+__global__ void __launch_bounds__(128) noop(const float* x, float* vol,
+                                           int n) {
+  for (int i = threadIdx.x; i < n; i += blockDim.x) vol[i] = x[i];
 }
 
 // ---- the one-hot lane tiling of tests/test_pallas.py:155-172: out (rows,
@@ -1347,39 +1664,36 @@ __global__ void __launch_bounds__(128) expand(const float* v, float* out,
 
 inline int blocks_for(int n, int per) { return (n + per - 1) / per; }
 
-// one sweep in one form; the rows form's window needs the kernel's opt-in
-// when its dynamic shared memory exceeds 48 KB, set for each launched sweep
-template <int FORM, class FS>
-void launch_sweep(void (*kern)(SphConst, StepBufs, CacheBufs),
-                  const SphConst& c, const StepBufs& b, const CacheBufs& cb,
-                  cudaStream_t st) {
-  int nb = blocks_for(c.nyp * c.K * c.nx, 128), nt = 128;
-  size_t sm = 0;
-  if constexpr (FORM == FORM_ROWS) {
-    nb = c.nyp * blocks_for(c.nx, c.tx);
-    nt = c.tx * c.K;
-    sm = sizeof(float) * 3 * c.K * (c.tx + 2) * FS::n;
-    if (sm > 48 * 1024)
-      cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                           sm);
-  }
-  kern<<<nb, nt, sm, st>>>(c, b, cb);
+// FORM_ROWS sweep S; its window needs the kernel's opt-in when its dynamic
+// shared memory exceeds 48 KB, set for each launched sweep
+template <int S>
+void launch_rows(const SphConst& c, const StepBufs& b, cudaStream_t st) {
+  const size_t sm = sizeof(float) * 3 * c.K * (c.tx + 2) * SweepFields<S>::n;
+  if (sm > 48 * 1024)
+    cudaFuncSetAttribute(rows_sweep<S>,
+                         cudaFuncAttributeMaxDynamicSharedMemorySize, sm);
+  rows_sweep<S><<<c.nyp * blocks_for(c.nx, c.tx), c.tx * c.K, sm, st>>>(c, b);
 }
 
-// sweeps first .. first+count-1 of one step, in stream order
-template <int FORM>
-void launch_sweeps(const SphConst& c, const StepBufs& b, const CacheBufs& cb,
-                   int first, int count, cudaStream_t st) {
-  for (int s = first; s < first + count; ++s) {
-    if (s == 0)
-      launch_sweep<FORM, Fields0>(sweep0<FORM>, c, b, cb, st);
-    else if (s == 1)
-      launch_sweep<FORM, Fields1>(sweep1<FORM>, c, b, cb, st);
-    else if (s == 2)
-      launch_sweep<FORM, Fields2>(sweep2<FORM>, c, b, cb, st);
-    else
-      launch_sweep<FORM, Fields3>(sweep3<FORM>, c, b, cb, st);
-  }
+// FORM_WIN sweep S, G lanes per anchor slot; the whole window in one piece
+// of the walk where 9K <= 128, else row by row
+template <int G, int ROWS>
+void launch_win(const SphConst& c, const StepBufs& b, int s,
+                cudaStream_t st) {
+  const int nb = blocks_for(c.nyp * c.K * c.nx * G, 128);
+  if (s == 0) win_sweep<0, G, ROWS><<<nb, 128, 0, st>>>(c, b);
+  else if (s == 1) win_sweep<1, G, ROWS><<<nb, 128, 0, st>>>(c, b);
+  else if (s == 2) win_sweep<2, G, ROWS><<<nb, 128, 0, st>>>(c, b);
+  else win_sweep<3, G, ROWS><<<nb, 128, 0, st>>>(c, b);
+}
+
+// the whole window in one piece of the walk where 9K <= 128, else row by
+// row
+template <int G>
+void launch_win(const SphConst& c, const StepBufs& b, int s,
+                cudaStream_t st) {
+  if (9 * c.K <= kPiece) launch_win<G, 3>(c, b, s, st);
+  else launch_win<G, 1>(c, b, s, st);
 }
 
 template <int G, bool WIDE>
@@ -1438,9 +1752,22 @@ cudaError_t sweeps(const SphConst& c, const StepBufs& b, const CacheBufs& cb,
         return cudaErrorInvalidValue;
     }
   } else if (form == FORM_ROWS) {
-    launch_sweeps<FORM_ROWS>(c, b, cb, first, count, st);
+    for (int s = first; s < first + count; ++s) {
+      if (s == 0) launch_rows<0>(c, b, st);
+      else if (s == 1) launch_rows<1>(c, b, st);
+      else if (s == 2) launch_rows<2>(c, b, st);
+      else launch_rows<3>(c, b, st);
+    }
+  } else if (form == FORM_WIN) {
+    for (int s = first; s < first + count; ++s) {
+      if (c.wg == 4) launch_win<4>(c, b, s, st);
+      else if (c.wg == 8) launch_win<8>(c, b, s, st);
+      else if (c.wg == 16) launch_win<16>(c, b, s, st);
+      else if (c.wg == 32) launch_win<32>(c, b, s, st);
+      else return cudaErrorInvalidValue;
+    }
   } else {
-    launch_sweeps<FORM_WIN>(c, b, cb, first, count, st);
+    return cudaErrorInvalidValue;
   }
   return cudaSuccess;
 }
@@ -1467,7 +1794,8 @@ int sph_step(const SphConst* cp, const StepBufs* bp, const CacheBufs* cbp,
 }
 
 int sph_noop(const SphConst* cp, const StepBufs* bp, void* stream) {
-  noop<<<1, 128, 0, static_cast<cudaStream_t>(stream)>>>(*cp, *bp);
+  noop<<<1, 128, 0, static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const float*>(bp->x), bp->vol, cp->nx + 2);
   return static_cast<int>(cudaGetLastError());
 }
 

@@ -61,6 +61,10 @@ CACHE_GROUPS = (1, 2, 4, 8, 16, 32)
 CACHE_THREADS = 160_000   # threads a cache sweep should put on the card
 CACHE_G_MAX = 8           # lanes per anchor in sweeps 1-3 at most
 
+# lanes per anchor slot in the recompute form ("none", ``win_groups``):
+# csrc/fused_cell.cu instantiates each for every sweep
+WIN_GROUPS = CACHE_GROUPS0
+
 _lib = None
 
 
@@ -71,7 +75,7 @@ def reset_launch_counts() -> None:
 
 class _Const(ctypes.Structure):
     _fields_ = ([(n, ctypes.c_int) for n in ("nyp", "K", "nx", "R", "kcut",
-                                              "ncs", "tx", "cg0", "cg")]
+                                              "ncs", "tx", "cg0", "cg", "wg")]
                 + [(n, ctypes.c_float) for n in (
                     "DL", "h", "cut2", "sigma", "sig025", "c225soh",
                     "c3soh", "cm075soh", "rho0", "p0", "c_f", "inv_sigma0",
@@ -171,6 +175,14 @@ def cache_groups(n_slots: int) -> tuple:
     return g0, min(g0, CACHE_G_MAX)
 
 
+def win_groups(n_slots: int) -> int:
+    """G: lanes per anchor slot in the recompute form's sweeps, from the
+    number of anchor slots: the cache form's pick for its sweep 0, which
+    walks the same window (chip_smoke.py phase 4 times every size at
+    dp=0.01 and dp=0.025; PERF.md)."""
+    return cache_groups(n_slots)[0]
+
+
 def _const(spec, R: int, rho0, p0, c_f, inv_sigma0, transport_coeff,
            kcut: int = 0):
     """Kernel constants, each rounded once from float64 as the JAX
@@ -184,9 +196,13 @@ def _const(spec, R: int, rho0, p0, c_f, inv_sigma0, transport_coeff,
     if cg0 not in CACHE_GROUPS0 or cg not in CACHE_GROUPS:
         raise ValueError(f"lanes per anchor ({cg0}, {cg}) not in "
                          f"{CACHE_GROUPS0} x {CACHE_GROUPS}")
+    wg = win_groups(nyp * spec.K * spec.nx)
+    if wg not in WIN_GROUPS:
+        raise ValueError(f"lanes per anchor {wg} not in {WIN_GROUPS}")
     return _Const(
         nyp=nyp, K=spec.K, nx=spec.nx, R=R, kcut=kcut,
         ncs=nyp * kcut * spec.nx, tx=max(1, 128 // spec.K), cg0=cg0, cg=cg,
+        wg=wg,
         DL=spec.DL, h=h,
         cut2=spec.cutoff * spec.cutoff, sigma=sigma, sig025=sigma * 0.25,
         c225soh=2.25 * soh, c3soh=3.0 * soh, cm075soh=-0.75 * soh,

@@ -1,7 +1,9 @@
 #!/usr/bin/env python3
-"""Time the wall-shear and expand kernels of one tree of this repository on
-the card, and dump the shear's per-slot partials, so that two trees (a
-change and its parent) can be compared in turns on one card.
+"""Time the kernels of one tree of this repository on the card (the wall
+shear, the expand, the no-op, the step and chunk in the recompute and cache
+forms), and dump the shear's per-slot partials and the recompute form's
+step and chunk outputs, so that two trees (a change and its parent) can be
+compared in turns on one card.
 
     python3 tools/kernel_ab.py --root TREE --tag NAME [--cli N] [--cli-a]
         [--out DIR]
@@ -25,14 +27,29 @@ three rounds of 200):
   (one small torch op): where a call's time goes;
 * ``expand`` and ``repeat``: the one-hot expand at the probe's (9K, nx) x K
   and ``Tensor.repeat``, both queued;
+* ``noop`` and ``copy_``: the no-op on the (b) step's buffers and a row
+  ``copy_`` of the same x row, five rounds of each in turns, queued;
+* at (b), at dp=0.025 (``chip_smoke.DP0025``) and on the K=48 grid
+  (``chip_smoke.K48``, where a window row is walked in pieces), in the
+  recompute form ("none") and in the form "auto" picks (a cache form;
+  ``cache_sweep_wide`` at K=48), with the seeded
+  jitter and a real dt: ``{grid}:{form}:step_bufs`` (the four sweeps on
+  persistent buffers, ``StepBuffers``), ``{grid}:{form}:sweep{s}`` (each
+  sweep relaunched on them), both queued, and ``{grid}:{form}:chunk16``
+  (``fused_chunk_call``, 16 steps, as its caller sees it);
 * with ``--cli N``: the (b) run of ``chip_smoke.py`` (0.3 s of flow under
   "auto" through the CLI) N times, their particle-steps/s;
 * with ``--cli-a``: config.ini as shipped for 2 s through the CLI, its
   final state dumped to ``NAME_a.npz``.
 
 Writes ``DIR/NAME.json`` (the times, the card's name and power limit;
-``DIR`` is ``results/ab`` by default) and ``DIR/NAME.npz`` (tb, tt of one
-shear launch). ``--compare`` says whether two dumps are equal bit for bit,
+``DIR`` is ``results/ab`` by default) and ``DIR/NAME.npz``: tb, tt of one
+shear launch, and the recompute form's step outputs and 16-step chunk
+outputs (state, cores, steps, clock) at (b), at config.ini's grid and at
+K=48 (``{grid}:step:*``, ``{grid}:chunk16:*``), and the cache form's at
+K=48 (``k48:cache:*``); each of those is launched twice
+and the JSON's ``repeat_bit_equal`` says whether the two launches agree
+bit for bit. ``--compare`` says whether two dumps are equal bit for bit,
 array by array.
 """
 
@@ -77,6 +94,79 @@ def _kernel_ms(fn, name: str, n: int) -> float:
         raise RuntimeError(f"{len(us)} '{name}' kernels traced in {n} "
                            "calls")
     return sum(us) / n / 1e3
+
+
+def _grid(cs, name: str, dev):
+    """(cfg, spec, lay, the five state cores, scalars, dt) of a grid of
+    chip_smoke.py with its seeded jitter."""
+    from sph_poiseuille_flow_torch.config import derive_config, load_config
+    from sph_poiseuille_flow_torch.ops.integration import verlet_dt
+    cfg = (load_config(os.path.join(cs.ROOT, "config.ini")) if name == "a"
+           else derive_config(**dict(b=cs.DP001, d025=cs.DP0025,
+                                     k48=cs.K48)[name]))
+    _, spec, lay, c, (vx, vy) = cs._jittered_case(cfg, dev)
+    nf = spec.n_fluid
+    dt = verlet_dt(vx[:nf], vy[:nf], cfg.c_f, cfg.h, cfg.nu, cfg.gravity_g,
+                   1.0)
+    args5 = (c["xH"], c["yH"], c["vxH"], c["vyH"], c["drP"])
+    sc = (cfg.rho0, cfg.p0, cfg.c_f, cfg.inv_sigma0, cfg.transport_coeff,
+          cfg.gravity_g, cfg.mu, cfg.wall_visc_factor)
+    return cfg, spec, lay, args5, sc, dt
+
+
+def _forms(cs, dev, dump: dict, ms: dict) -> bool:
+    """The recompute and cache forms' times at (b), dp=0.025 and K=48 into
+    ``ms``; the recompute form's step and chunk outputs at (b), config.ini's
+    grid and K=48, and the cache form's at K=48, into ``dump``. Returns
+    whether two launches of each dumped call agreed bit for bit."""
+    import dataclasses
+    import torch
+    from sph_poiseuille_flow_torch.ops import fused_cell as fc
+    from sph_poiseuille_flow_torch.ops import fused_cell_cuda as fcc
+    from sph_poiseuille_flow_torch.probe import event_ms
+
+    same = True
+    for grid in ("b", "d025", "k48", "a"):
+        cfg, spec, lay, args5, sc, dt = _grid(cs, grid, dev)
+        R = fc.plan(spec)[0]
+        for label, knobs in (("none", dict(geom_cache="none")),
+                             ("cache", {})):
+            fspec = dataclasses.replace(spec, **knobs)
+            if grid != "a":
+                form = fc.step_form(fspec, torch.float32)
+                b = fcc.StepBuffers(fspec, R, lay, *args5, dt, sc, *form)
+                b.sweeps(0, 4)
+                key = f"{grid}:{label}"
+                ms[f"{key}:step_bufs"] = event_ms(lambda: b.sweeps(0, 4),
+                                                  200, queued=True)
+                for s in range(4):
+                    ms[f"{key}:sweep{s}"] = event_ms(
+                        lambda s=s: b.sweeps(s, 1), 200, queued=True)
+                ms[f"{key}:chunk16"] = event_ms(
+                    lambda: fc.fused_chunk_call(fspec, lay, *args5, 0.0,
+                                                0.0, 1.0, 16, *sc), 20)
+            if grid == "d025" or (label != "none" and grid != "k48"):
+                continue
+            runs = [(fc.fused_step_cores(fspec, lay, *args5, dt, *sc),
+                     fc.fused_chunk_call(fspec, lay, *args5, 0.0, 0.0, 1.0,
+                                         16, *sc)) for _ in range(2)]
+            torch.cuda.synchronize()
+            flat = []
+            # the recompute form's keys keep their names of earlier dumps
+            g = grid if label == "none" else f"{grid}:{label}"
+            for step, (st, cores, *rest) in runs:
+                d = {f"{g}:step:{k}": v for k, v in step.items()}
+                d.update({f"{g}:chunk16:state:{k}": v
+                          for k, v in st.items()})
+                d.update({f"{g}:chunk16:aux:{k}": v
+                          for k, v in cores.items()})
+                d.update({f"{g}:chunk16:rest{i}": v.reshape(1)
+                          for i, v in enumerate(rest)})
+                flat.append({k: v.cpu().numpy() for k, v in d.items()})
+            same &= all(flat[0][k].tobytes() == flat[1][k].tobytes()
+                        for k in flat[0])
+            dump.update(flat[0])
+    return same
 
 
 def main(argv=None) -> int:
@@ -126,9 +216,7 @@ def main(argv=None) -> int:
     out = fcc.wall_shear(spec, R, lay, *sh)
     tb, tt = out[0], out[1]
     torch.cuda.synchronize()
-    os.makedirs(args.out, exist_ok=True)
-    np.savez(os.path.join(args.out, f"{args.tag}.npz"), tb=tb.cpu().numpy(),
-             tt=tt.cpu().numpy())
+    dump = dict(tb=tb.cpu().numpy(), tt=tt.cpu().numpy())
 
     n = roofline.pair_counts(spec, lay, sh[0], sh[1])
     ms = {
@@ -146,7 +234,21 @@ def main(argv=None) -> int:
     ms["expand"] = event_ms(lambda: probes.expand_onehot(v, spec.K), 200,
                             queued=True)
     ms["repeat"] = event_ms(lambda: v.repeat(1, spec.K), 200, queued=True)
+    # the no-op on the step's buffers against a row copy_, in turns
+    b = fcc.StepBuffers(spec, R, lay, *args5, dt, sc, "none", 0)
+    b.sweeps(0, 4)
+    src = args5[0][0, 0, :]
+    row = torch.zeros_like(src)
+    ms["noop"], ms["copy_"] = [], []
+    for _ in range(5):
+        ms["noop"].append(event_ms(b.noop, 200, queued=True))
+        ms["copy_"].append(event_ms(lambda: row.copy_(src), 200,
+                                    queued=True))
+    same = _forms(cs, dev, dump, ms)
+    os.makedirs(args.out, exist_ok=True)
+    np.savez(os.path.join(args.out, f"{args.tag}.npz"), **dump)
     res = dict(tag=args.tag, root=root, card=card_line(), ms=ms,
+               repeat_bit_equal=same,
                shear_bound=roofline.bound("shear", spec, n),
                expand_bound=roofline.expand_bound(9 * spec.K, spec.nx,
                                                   spec.K))
