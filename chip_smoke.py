@@ -20,12 +20,14 @@ Phases, each of which exits non-zero on failure before the last line:
    K=14, nx=100): the fused step at both dts, a 16-step chunk, the wall
    shear (its per-slot partials too, and two launches bit-equal). The rows
    kernels are also held to the recompute kernels, which they must equal
-   bit for bit on every core; then the recompute and cache forms at K=48
-   on a small dense grid (three cell columns of the tiny box at dp=0.025,
-   up to 47 particles a cell, so a window row of 144 candidates spans two
-   pieces of the kernels' mask): "none", "full" and what "auto" picks
-   there, the step at both dts (pair count exact) and a 16-step chunk
-   against the plain twin;
+   bit for bit on every core; then the recompute, cache and rows forms at
+   K=48 on a small dense grid (three cell columns of the tiny box at
+   dp=0.025, up to 47 particles a cell, so a window row of 144 candidates
+   spans two pieces of the kernels' mask): "none", "full", what "auto"
+   picks there and "rows", the step at both dts (pair count exact) and a
+   16-step chunk against the plain twin, and rows against none bit for bit
+   on every core; at each grid the rows step and chunk launched twice,
+   bit-equal;
 2b. the probes' kernels at both grids in every form: each sweep prefix
    of the step (``probes.fused_step_sweeps``) equals the kernel's full step
    bit for bit on the cores it writes, leaves the others zero and holds
@@ -71,7 +73,9 @@ Phases, each of which exits non-zero on failure before the last line:
    (``fused_cell_cuda.CACHE_GROUPS0``, ``CACHE_GROUPS``; the shipped pick
    is ``fused_cell_cuda.cache_groups``), with the sweeps each size runs;
    the recompute form's chunk, step and sweeps at each lane group size
-   (``fused_cell_cuda.WIN_GROUPS``; the pick is ``win_groups``);
+   (``fused_cell_cuda.WIN_GROUPS``; the pick is ``win_groups``); the rows
+   form's at the tile ``fused_cell_cuda.rows_tile`` picks (TX columns, G
+   lanes per anchor) and its neighbours;
    the wall shear through its wrapper and its kernel alone on its
    persistent buffers; and the no-op on a step's buffers against a row
    ``copy_``, in turns, five times each, with their spread.
@@ -112,9 +116,13 @@ K48 = dict(DL=1.0, DH=0.5, dp=0.025, rho0=1.0, mu=0.1, U_bulk=0.666667,
            c_f=15.0, end_time=0.5, output_interval=0.25, sort_interval=100,
            restart_from_file=False, cell_capacity=48, lane_pack_nx=3)
 # the forms held at K=48: the recompute form (its window rows walked in
-# pieces), the cache over every rank, and what "auto" picks (a cache form)
+# pieces), the cache over every rank, what "auto" picks (a cache form) and
+# the rows form (its tile's window rows walked in pieces too)
 K48_FORMS = (("none", dict(geom_cache="none")),
-             ("full", dict(geom_cache="full")), ("cache", {}))
+             ("full", dict(geom_cache="full")), ("cache", {}),
+             ("rows", dict(fused_rows="1")))
+# the K=48 forms that resolve to a geometry cache
+K48_CACHE_FORMS = K48_FORMS[1:3]
 
 # The forms of the step and the chunk, as (label, spec knobs): "cache" is
 # what "auto" picks at the grid ("full" at (a) and dp=0.025, "ring" at
@@ -331,6 +339,53 @@ def _check_form(device, check: Check, label: str, cfg, spec, lay, args,
     return outs
 
 
+def _rows_vs_none(check: Check, label: str, cfg, outs: dict) -> None:
+    """The rows kernels walk the recompute form's window in its order with
+    its arithmetic from their staged tile, and the recompute kernels add
+    each anchor's terms in that order: every core must be bit-equal."""
+    import torch
+    n_eq = n_all = 0
+    for case, got in outs["rows"].items():
+        step = case.startswith("step")
+        tol = TOL_STEP if step else TOL_CHUNK
+        for k, v in got.items():
+            n_all += 1
+            n_eq += int(torch.equal(v, outs["none"][case][k]))
+            check.core("fused_step_rows" if step else "fused_chunk_rows",
+                       f"{label}/rows-none:{case}:{k}", v,
+                       outs["none"][case][k], tol,
+                       _abs_bound(k.split(":")[-1], tol, cfg.p0,
+                                  0.0 if step else CNT_CHUNK),
+                       record=False)
+    _say(f"  rows vs recompute kernels ({label}): {n_eq} of {n_all} cores "
+         "bit-equal")
+    if n_eq != n_all:
+        raise AssertionError(f"rows vs recompute kernels ({label}): only "
+                             f"{n_eq} of {n_all} cores bit-equal")
+
+
+def _rows_twice(label: str, cfg, spec, lay, args, dt, outs: dict) -> None:
+    """The rows step and the grid's last chunk case launched again on the
+    same inputs: bit-equal to the first launches (``outs["rows"]``)."""
+    import torch
+    from sph_poiseuille_flow_torch.ops import fused_cell as fc
+    rspec = _form_spec(spec, dict(fused_rows="1"))
+    sc = (cfg.rho0, cfg.p0, cfg.c_f, cfg.inv_sigma0, cfg.transport_coeff,
+          cfg.gravity_g, cfg.mu, cfg.wall_visc_factor)
+    step = fc.fused_step_cores(rspec, lay, *args, dt, *sc)
+    n_sub, interval, _ = CHUNKS[label][-1]
+    got = fc.fused_chunk_call(rspec, lay, *args, 0.0, 0.0, interval, n_sub,
+                              *sc)
+    torch.cuda.synchronize()
+    chunk = {**got[0], **{f"aux:{k}": v for k, v in got[1].items()}}
+    _equal(f"rows step ({label}) launched twice", step, outs["rows"]["step"],
+           step)
+    _equal(f"rows chunk ({label}) launched twice", chunk,
+           outs["rows"][f"chunk{n_sub}"], chunk)
+    _say(f"  rows kernels ({label}): two launches bit-equal (step, "
+         f"{n_sub}-step chunk)")
+
+
 def phase_kernels(device, check: Check, label: str, cfg) -> dict:
     import torch
     from sph_poiseuille_flow_torch.ops import fused_cell as fc
@@ -351,27 +406,8 @@ def phase_kernels(device, check: Check, label: str, cfg) -> dict:
                                 flabel)
             for flabel, knobs in FORMS}
 
-    # the rows kernels run the recompute arithmetic in the recompute order
-    # from shared memory, and the recompute kernels add each anchor's terms
-    # in that order: every core must be bit-equal
-    n_eq = n_all = 0
-    for case, got in outs["rows"].items():
-        step = case.startswith("step")
-        tol = TOL_STEP if step else TOL_CHUNK
-        for k, v in got.items():
-            n_all += 1
-            n_eq += int(torch.equal(v, outs["none"][case][k]))
-            check.core("fused_step_rows" if step else "fused_chunk_rows",
-                       f"{label}/rows-none:{case}:{k}", v,
-                       outs["none"][case][k], tol,
-                       _abs_bound(k.split(":")[-1], tol, cfg.p0,
-                                  0.0 if step else CNT_CHUNK),
-                       record=False)
-    _say(f"  rows vs recompute kernels ({label}): {n_eq} of {n_all} cores "
-         "bit-equal")
-    if n_eq != n_all:
-        raise AssertionError(f"rows vs recompute kernels ({label}): only "
-                             f"{n_eq} of {n_all} cores bit-equal")
+    _rows_vs_none(check, label, cfg, outs)
+    _rows_twice(label, cfg, spec, lay, args, dt, outs)
 
     # the wall shear on the stepped cores, as the engine calls it
     sc = (cfg.rho0, cfg.p0, cfg.c_f, cfg.inv_sigma0, cfg.transport_coeff,
@@ -413,8 +449,9 @@ def phase_kernels(device, check: Check, label: str, cfg) -> dict:
 
 
 def phase_k48(device, check: Check) -> dict:
-    """The cache form at K=48 on the dense grid: the step at both dts and
-    a 16-step chunk against the plain twin in the forms of K48_FORMS."""
+    """The forms of K48_FORMS on the dense K=48 grid: the step at both dts
+    and a 16-step chunk against the plain twin, and the rows kernels
+    against the recompute kernels, bit for bit on every core."""
     import torch
     from sph_poiseuille_flow_torch.config import derive_config
     from sph_poiseuille_flow_torch.ops import fused_cell as fc
@@ -432,12 +469,17 @@ def phase_k48(device, check: Check) -> dict:
     dt = verlet_dt(vx[:nf], vy[:nf], cfg.c_f, cfg.h, cfg.nu, cfg.gravity_g,
                    1.0)
     args = (c["xH"], c["yH"], c["vxH"], c["vyH"], c["drP"])
+    outs = {}
     for flabel, knobs in K48_FORMS:
         fspec = _form_spec(spec, knobs)
         form = fc.chunk_form(fspec, torch.float32)[0]
-        if (form == "none") != (flabel == "none") or form == "rows":
+        if (form != flabel if flabel in ("none", "rows")
+                else form in ("none", "rows")):
             raise AssertionError(f"k48 ({flabel}): resolves to {form}")
-        _check_form(device, check, "k48", cfg, fspec, lay, args, dt, flabel)
+        outs[flabel] = _check_form(device, check, "k48", cfg, fspec, lay,
+                                   args, dt, flabel)
+    _rows_vs_none(check, "k48", cfg, outs)
+    _rows_twice("k48", cfg, spec, lay, args, dt, outs)
     sc = (cfg.rho0, cfg.p0, cfg.c_f, cfg.inv_sigma0, cfg.transport_coeff,
           cfg.gravity_g, cfg.mu, cfg.wall_visc_factor)
     return dict(cfg=cfg, spec=spec, lay=lay, args=args, sc=sc, dt=dt)
@@ -1007,6 +1049,24 @@ def _time(fn, reps: int) -> float:
     return e0.elapsed_time(e1) / reps
 
 
+def _rows_tiles(spec, picked) -> list:
+    """The rows form's tile as rows_tile picks it and its neighbours: half
+    and twice the columns at its G, and half and twice its G with the
+    columns rows_tile would give them; each that fits a block."""
+    from sph_poiseuille_flow_torch.ops import fused_cell_cuda as fcc
+    tx, G = picked
+    K = spec.K
+    tiles = [picked, (max(1, tx // 2), G), (min(spec.nx, 2 * tx), G)]
+    for g in (G // 2, 2 * G):
+        if g in fcc.ROWS_GROUPS:
+            tiles.append((max(1, min(spec.nx, fcc.ROWS_BLOCK // (K * g))), g))
+    out = []
+    for t in tiles:
+        if t not in out and t[0] * K * t[1] <= fcc.ROWS_BLOCK_MAX:
+            out.append(t)
+    return out
+
+
 def phase_timing(device, kern_b: dict) -> dict:
     """Kernel and plain times of every form of step and chunk at the (b)
     shapes and at dp=0.025, and of the shear at (b); with each call's
@@ -1126,6 +1186,33 @@ def phase_timing(device, kern_b: dict) -> dict:
             fcc.win_groups = pick
         _say(f"timing ({grid}) fused_* recompute by lanes per anchor, ms "
              f"(picked G={picked}): " + "; ".join(lines))
+        # the rows form at the tile rows_tile picks and its neighbours: the
+        # chunk and the step's sweeps on persistent buffers
+        rspec = _form_spec(spec, dict(fused_rows="1"))
+        n_slots = fc.plan(spec)[3] * spec.K * spec.nx
+        picked = fcc.rows_tile(spec.K, n_slots, spec.nx)
+        pick = fcc.rows_tile
+        lines = []
+        try:
+            for tile in _rows_tiles(spec, picked):
+                fcc.rows_tile = lambda K, n, nx, tile=tile: tile
+                t = min(_time(lambda: fc.fused_chunk_call(
+                    rspec, lay, *args, 0.0, 0.0, 1.0, 16, *sc), 5)
+                    for _ in range(2))
+                b = fcc.StepBuffers(rspec, R, lay, *args, dt, sc, "rows", 0)
+                b.sweeps(0, 4)
+                sw = [event_ms(lambda s=s: b.sweeps(s, 1), 50, queued=True)
+                      for s in range(4)]
+                step = event_ms(lambda: b.sweeps(0, 4), 50, queued=True)
+                out[(grid, f"rows:TX={tile[0]},G={tile[1]}")] = (t, step,
+                                                                 *sw)
+                lines.append(f"TX={tile[0]} G={tile[1]}: chunk {t:.4f}, step "
+                             f"on buffers {step:.4f}, sweeps "
+                             + " / ".join(f"{v:.4f}" for v in sw))
+        finally:
+            fcc.rows_tile = pick
+        _say(f"timing ({grid}) fused_*_rows by tile, ms (picked TX={picked[0]}"
+             f", G={picked[1]}): " + "; ".join(lines))
     k = kern_b
     sh = k["sh"]
     p1 = _time(lambda: fc.fused_wall_shear_cores_plain(k["spec"], k["lay"],
@@ -1232,7 +1319,7 @@ def main() -> int:
         for label in kern:
             phase_probes(device, check, label, kern[label])
             phase_cache(device, check, label, kern[label])
-        phase_cache(device, check, "k48", k48, K48_FORMS[1:])
+        phase_cache(device, check, "k48", k48, K48_CACHE_FORMS)
         probe_counts, probe_res = phase_probe_cli()
         probe_times = _probe_times(probe_res)
         _say(f"probe phase done in {time.perf_counter() - t1:.1f} s")

@@ -37,14 +37,18 @@
 // row group visits; ranks k >= occ keep zeroed outputs (positions pass
 // through).
 //
-// The sweep bodies body0..body3 are written once against a candidate
-// source for the cache and rows forms, and the source is what those forms
-// change. FORM_WIN has its own bodies (body0..body3 overloads for LWin):
-// its pair terms go to the lane group's ordered sums, and the shared
-// bodies written over those compiled the cache kernels to other code (the
-// cache form's sweep 0 ran 8% slower). The two copies repeat one
-// arithmetic operation for operation; chip_smoke.py fails unless the rows
-// and the recompute kernels agree on every core bit for bit. The forms:
+// The physics stands twice. body0..body3 (generic over a candidate source)
+// serve the cache form alone. The window forms, FORM_WIN and FORM_ROWS,
+// share the body0..body3 overloads for LWin, whose pair terms go to the
+// lane group's ordered sums; LWin differs between them only in where a
+// candidate lives (InCores: the halo'd cores; InTile: the block's staged
+// tile). The cache bodies stay apart because bodies written over the
+// ordered sums compiled the cache kernels to other code (its sweep 0 ran
+// 8% slower). Which check guards which copy: chip_smoke.py holds every
+// form to the plain twin at its tolerances (the cache's bodies are guarded
+// by that alone) and fails unless the rows kernels equal the recompute
+// kernels on every core bit for bit, which guards the tile's index
+// arithmetic (staging, the walk's place in the tile). The forms:
 //   * FORM_WIN (geom_cache "none"; the JAX package's recompute loop,
 //     _kloop_span fused_cell.py:511-533, over the window of _stage
 //     :251-263): a group of G lanes shares one anchor slot (LWin,
@@ -108,16 +112,25 @@
 //     floats); sweep 1 reads 24 of list and one 16-byte record; sweep 2
 //     reads 24 of list and three records (48) in each of its two passes;
 //     sweep 3 reads 20 of list (no r) and two records (32).
-//   * FORM_ROWS (fused_rows "1"): one block per tile of one cell row, TX
-//     columns x all K ranks, one thread per anchor slot; the block stages
-//     the 3 candidate rows x (TX+2) columns x K ranks of each field the
-//     sweep reads into shared memory once and each thread walks its 9K
-//     candidates from there, in the same (dy, dx, k) order and with the
-//     recompute arithmetic and the one-thread order of the sums, so its
-//     outputs equal FORM_WIN's bit for bit.
-//     Threads of a warp differ in (k, tx) with tx fastest and read
-//     candidate (dy, dx, j) at (dy*K + j)*W + tx + dx: TX consecutive words,
-//     broadcast across k, so no bank conflicts.
+//   * FORM_ROWS (fused_rows "1"; the JAX package's candidate-row-outer
+//     loop, _kernel_body_rows fused_cell.py:1081, whose (K, L) anchors
+//     stay in registers while each candidate row is loaded once): one
+//     block per tile of one cell row, TX = c.tx columns x all K ranks x
+//     G = c.rg lanes per anchor slot (the wrapper's rows_tile; at most 1024
+//     threads), slots in the (k, tx) order, G consecutive threads each. The
+//     block stages its window once into shared memory: for each field the
+//     sweep reads, the 3 candidate rows x the ranks below each row's
+//     occupancy bound (none for the y-halo rows) x the TX+2 halo'd columns
+//     from the tile's first, as tile[f][dy][j][col] with W = TX+2 words a
+//     rank (InTile). Every group then walks its anchor's window as FORM_WIN
+//     does (walk_window, the same two passes, order and sums), reading x
+//     and y in pass 1 and every field in pass 2 from the tile, so its
+//     outputs equal FORM_WIN's bit for bit. Pass 1's loads: the G lanes of
+//     a group take u = 3j + dx, so a round reads words j*W + dx + tx, and
+//     the warp's groups at neighbouring columns shift them by one; at the
+//     tiles rows_tile picks they fall on distinct banks or share a word (a
+//     broadcast), so W needs no padding (tests/test_torch_rows_tile.py).
+//     Pass 2's words depend on which candidates are valid.
 //
 // What bounds it on this card: the working set (a few MB at dp=0.01) sits
 // in the 50 MB L2, so HBM does not bound the sweeps. FORM_WIN puts G lanes
@@ -127,8 +140,11 @@
 // from L1/L2): its sweeps last about as long as the cache form's sweep 0,
 // which walks the same window, and are bound by the latency of those
 // loads and of the round's chain (geometry, field loads, shuffles), not
-// by bytes or operations. FORM_ROWS, one thread per slot, walks all 9K
-// candidates from shared memory. FORM_CACHE puts a group of lanes on each anchor
+// by bytes or operations. FORM_ROWS walks the same window in the same
+// lane groups from shared memory: each staged word serves the ~3*occ
+// anchors of the tile that test it in pass 1, and the staging (one
+// __syncthreads a block, (TX+2)/TX of the columns used) is its price.
+// FORM_CACHE puts a group of lanes on each anchor
 // (8 lanes: 437k threads at dp=0.01, more than the card holds at once) and
 // walks ~17 valid candidates instead of 9K = 126 in sweeps 1-3; what
 // bounds it then is the L1/L2 traffic of the candidate gathers:
@@ -159,10 +175,11 @@ struct SphConst {
   int nyp, K, nx, R;
   int kcut;  // FORM_CACHE: anchor ranks k < kcut use the cache (K: all)
   int ncs;   // cached slots: nyp * kcut * nx
-  int tx;    // FORM_ROWS: tile width in cell columns (tx * K <= 128)
+  int tx;    // FORM_ROWS: tile width in cell columns (tx * K * rg <= 1024)
   int cg0;   // FORM_CACHE: lanes per anchor slot in sweep 0 (4 .. 32)
   int cg;    // FORM_CACHE: lanes per anchor slot in sweeps 1-3 (1 .. 32)
   int wg;    // FORM_WIN: lanes per anchor slot (4 .. 32)
+  int rg;    // FORM_ROWS: lanes per anchor slot (4 .. 32)
   float DL, h, cut2, sigma, sig025, c225soh, c3soh, cm075soh;
   float rho0, p0, c_f, inv_sigma0, inv_rho0, tchh, h001, hh, c025h;
 };
@@ -324,21 +341,7 @@ __device__ __forceinline__ bool slot_at(const SphConst& c, const int* occ,
   return true;
 }
 
-// FORM_ROWS: block = (row iy, tile of tx columns from x0), thread = (k, ix)
-__device__ __forceinline__ bool tile_slot(const SphConst& c, const int* occ,
-                                          Slot& s, int& x0) {
-  const int tiles = (c.nx + c.tx - 1) / c.tx;
-  s.iy = blockIdx.x / tiles;
-  x0 = (blockIdx.x % tiles) * c.tx;
-  s.k = threadIdx.x / c.tx;
-  s.ix = x0 + threadIdx.x % c.tx;
-  if (s.ix >= c.nx) return false;
-  s.ha = hix(c, s.iy + 1, s.k, s.ix + 1);
-  s.visited = s.k < occ[s.iy / c.R];
-  return true;
-}
-
-// FORM_CACHE and FORM_WIN: G lanes (a power of two <= 32) share one anchor
+// FORM_CACHE, FORM_WIN and FORM_ROWS: G lanes (a power of two <= 32) share one anchor
 // slot. In FORM_CACHE a per-anchor sum is the xor-butterfly of the lanes'
 // partial sums: a fixed order, and every lane ends with the same bits (a +
 // b == b + a). FORM_WIN adds the terms in window order instead (geo_sum
@@ -365,6 +368,28 @@ __device__ __forceinline__ bool group_slot(const SphConst& c, const int* occ,
   return slot_at(c, occ, s, (blockIdx.x * blockDim.x + threadIdx.x) / G);
 }
 
+// FORM_ROWS: block = (cell row iy, tile of c.tx columns from x0), its
+// slots in the (k, tx) order, G consecutive threads each (blockDim.x =
+// c.tx * K * G, so a group never straddles warps); false for the columns
+// of the last tile past nx
+template <int G>
+__device__ __forceinline__ bool tile_slot(const SphConst& c, const int* occ,
+                                          Slot& s, Lanes<G>& g, int& x0) {
+  const int tiles = (c.nx + c.tx - 1) / c.tx;
+  s.iy = blockIdx.x / tiles;
+  x0 = (blockIdx.x - s.iy * tiles) * c.tx;
+  const int wl = threadIdx.x & 31;
+  g.lane = wl & (G - 1);
+  g.mask = G == 32 ? 0xffffffffu : ((1u << G) - 1u) << (wl & ~(G - 1));
+  const int a = threadIdx.x / G;
+  s.k = a / c.tx;
+  s.ix = x0 + (a - s.k * c.tx);
+  if (s.ix >= c.nx) return false;
+  s.ha = hix(c, s.iy + 1, s.k, s.ix + 1);
+  s.visited = s.k < occ[s.iy / c.R];
+  return true;
+}
+
 // a window walk's bit mask of kPiece window positions (walk_window)
 constexpr int kMaskWords = 4;
 constexpr int kPiece = 32 * kMaskWords;
@@ -376,21 +401,29 @@ struct WinMask {
 
 // ---- candidate sources ----
 // Each gives the fields of a candidate (ld), its per-anchor sum (sum: the
-// thread's own for the one-thread form; FORM_WIN's sums are its own, see
+// cache form's lane butterfly; the window forms' sums are their own, see
 // geo_sum) and whether this thread writes the anchor's outputs (lead).
 
-// FORM_WIN: the anchor's window straight from the halo'd cores, walked by
-// its group of G lanes; ROWS: window rows per piece of the walk (3 when
-// the whole window fits one piece, 9K <= 128, else 1; walk_window); memo:
-// the window's mask, kept by a sweep's first walk for its second (ROWS = 3)
-template <int G, int ROWS>
-struct LWin : Lanes<G> {
-  const SphConst& c;
-  const StepBufs& b;
-  int iy, ix;
-  mutable WinMask memo{};
+// the anchor-rank bound of halo'd cell row `row` (0 for the y-halo rows,
+// which hold empty slots only)
+__device__ __forceinline__ int row_occ(const SphConst& c, const int* occ,
+                                       int row) {
+  return row >= 1 && row <= c.nyp ? occ[(row - 1) / c.R] : 0;
+}
+
+// Where a window's candidates live: candidate (window row dy, rank j,
+// column dx) of the anchor is at(dy, j, dx), and ld<F>(b, i) is field F
+// there. InCores: the halo'd cores, the anchor at halo'd (iy+1, ix+1)
+// (FORM_WIN, the wide cache kernels, the shear).
+struct InCores {
+  int K, nx2, iy, ix;
+  __device__ __forceinline__ int at(int dy, int j, int dx) const {
+    return ((iy + dy) * K + j) * nx2 + ix + dx;
+  }
   template <int F>
-  __device__ __forceinline__ float ld(int i) const { return core<F>(b)[i]; }
+  __device__ __forceinline__ float ld(const StepBufs& b, int i) const {
+    return core<F>(b)[i];
+  }
 };
 
 // the fields a sweep reads from its candidates, in shared-memory order
@@ -403,18 +436,35 @@ struct FieldSet {
     ((r = (Fs == F ? i : r), ++i), ...);
     return r;
   }
-  // copy the 3 rows x (tx+2) halo'd columns x K ranks of each field
+  // FORM_ROWS: copy the block's window into its tile, tile[f][dy][j][col]
+  // (W = c.tx+2 words a rank, 3*K*W a field): for each field, halo'd cell
+  // rows iy .. iy+2, the ranks below each row's occupancy bound (the only
+  // ones the walk tests) and the halo'd columns x0 .. x0+W-1 inside the
+  // core; the rest of the tile is never read. A thread takes one (rank,
+  // column) of the rows and loads every field there before it stores
+  // them, so all of a thread's loads are in flight at once, and it decodes
+  // its place with one division
   __device__ static void stage(const SphConst& c, const StepBufs& b,
                                float* sm, int iy, int x0) {
     const float* src[n] = {core<Fs>(b)...};
-    const int W = c.tx + 2, per = 3 * c.K * W;
-    for (int t = threadIdx.x; t < n * per; t += blockDim.x) {
-      const int f = t / per, rr = t - f * per;
-      const int row = rr / W, col = rr - row * W;  // row = dy*K + k
-      const int ixh = x0 + col;
-      sm[t] = ixh < c.nx + 2
-                  ? src[f][hix(c, iy + row / c.K, row % c.K, ixh)]
-                  : 0.0f;
+    const int W = c.tx + 2, cols = min(W, c.nx + 2 - x0);
+    int jn[3];
+#pragma unroll
+    for (int dy = 0; dy < 3; ++dy) jn[dy] = row_occ(c, b.occ, iy + dy);
+    const int jm = max(jn[0], max(jn[1], jn[2]));
+    for (int t = threadIdx.x; t < jm * cols; t += blockDim.x) {
+      const int j = t / cols, col = t - j * cols;
+#pragma unroll
+      for (int dy = 0; dy < 3; ++dy) {
+        if (j >= jn[dy]) continue;
+        const int g = hix(c, iy + dy, j, x0 + col);
+        float v[n];
+#pragma unroll
+        for (int f = 0; f < n; ++f) v[f] = src[f][g];
+#pragma unroll
+        for (int f = 0; f < n; ++f)
+          sm[((f * 3 + dy) * c.K + j) * W + col] = v[f];
+      }
     }
   }
 };
@@ -425,28 +475,38 @@ using Fields2 = FieldSet<F_X, F_Y, F_ISF, F_VOL, F_VX, F_VY, F_B11, F_B12,
                          F_B21, F_B22, F_RHOH, F_PH, F_WVX, F_WVY>;
 using Fields3 = FieldSet<F_X, F_Y, F_ISF, F_VOL, F_VX2, F_VY2, F_WVX, F_WVY>;
 
-// FORM_ROWS: the block's shared-memory copy of the window
+// InTile: the block's staged tile (FORM_ROWS; FieldSet::stage), K ranks a
+// row, W words a rank, the anchor at tile column tx
 template <class FS>
-struct Tile {
-  const SphConst& c;
+struct InTile {
   const float* sm;
-  int tx;  // the thread's column in the tile
+  int K, W, tx;
+  __device__ __forceinline__ int at(int dy, int j, int dx) const {
+    return (dy * K + j) * W + tx + dx;
+  }
   template <int F>
-  __device__ __forceinline__ float ld(int i) const {
+  __device__ __forceinline__ float ld(const StepBufs&, int i) const {
     constexpr int f = FS::template at<F>();
     static_assert(f >= 0, "field not staged for this sweep");
-    return sm[f * 3 * c.K * (c.tx + 2) + i];
+    return sm[f * 3 * K * W + i];
   }
-  __device__ __forceinline__ float sum(float v) const { return v; }
-  __device__ __forceinline__ bool lead() const { return true; }
-  template <class Fn>
-  __device__ __forceinline__ void each(Fn&& fn) const {
-    const int W = c.tx + 2;
-    for (int dy = 0; dy < 3; ++dy)
-      for (int dx = 0; dx < 3; ++dx) {
-        int l = dy * c.K * W + tx + dx;
-        for (int j = 0; j < c.K; ++j, l += W) fn(l);
-      }
+};
+
+// FORM_WIN and FORM_ROWS: the anchor's window, walked by its group of G
+// lanes (walk_window) where P says (InCores, InTile); ROWS: window rows per
+// piece of the walk (3 when the whole window fits one piece, 9K <= 128,
+// else 1); memo: the window's mask, kept by a sweep's first walk for its
+// second (ROWS = 3)
+template <int G, int ROWS, class P>
+struct LWin : Lanes<G> {
+  const SphConst& c;
+  const StepBufs& b;
+  int iy;
+  P place;
+  mutable WinMask memo{};
+  template <int F>
+  __device__ __forceinline__ float ld(int i) const {
+    return place.template ld<F>(b, i);
   }
 };
 
@@ -529,18 +589,6 @@ __device__ __forceinline__ void store_rec(const SphConst& c,
 
 // ---- the pair loops of the sweeps, per source ----
 
-// every candidate with its geometry (the recompute forms)
-template <class Src, class Fn>
-__device__ __forceinline__ void geo_each(const SphConst& c, const Src& src,
-                                         float xa, float ya, bool need_w,
-                                         Fn&& fn) {
-  src.each([&](int i) {
-    fn(i, geometry(c, xa, ya, src.template ld<F_X>(i),
-                   src.template ld<F_Y>(i), src.template ld<F_ISF>(i),
-                   need_w));
-  });
-}
-
 // the window position of set bit p (p < popcount) of a piece's mask
 __device__ __forceinline__ int nth_bit(const unsigned (&m)[kMaskWords],
                                        int p) {
@@ -555,8 +603,9 @@ __device__ __forceinline__ int nth_bit(const unsigned (&m)[kMaskWords],
   return -1;
 }
 
-// The group's walk of an anchor's window (FORM_WIN's sweeps, the wide cache
-// kernels for K > 42, the shear), ROWS window rows a span (3 where the
+// The group's walk of an anchor's window (FORM_WIN's and FORM_ROWS's sweeps,
+// the wide cache kernels for K > 42, the shear), the candidates where
+// `place` says (InCores, InTile), ROWS window rows a span (3 where the
 // whole window fits one piece, 9K <= 128; else 1), in pieces of kPiece =
 // 32*kMaskWords window positions (w = (dr*3 + dx)*K + j over the rows dr
 // of the span; two pieces a row from K = 43), in two passes per piece.
@@ -569,18 +618,19 @@ __device__ __forceinline__ int nth_bit(const unsigned (&m)[kMaskWords],
 // takes them in window order, lane l the l-th, (l+G)-th ..., decoding a
 // position with compares, not divisions: fn(on, i, p) is called by every
 // lane of the group in step, with on set where the lane holds a candidate,
-// i its halo'd-core index and p its position among the window's listed
-// candidates. Spans and pieces are taken in window order, so the listed
-// candidates keep the (dy, dx, j) window order for every K. With memo
-// (ROWS = 3), the window's mask is kept by the first walk and used by the
-// next with the same test, which skips pass 1 (FORM_WIN's sweep 2 walks
-// its window twice). Returns how many were listed.
-template <int G, int ROWS, class Test, class Fn>
+// i its place (place.at: its halo'd-core or tile index) and p its position
+// among the window's listed candidates. Spans and pieces are taken in
+// window order, so the listed candidates keep the (dy, dx, j) window order
+// for every K. With memo (ROWS = 3), the window's mask is kept by the
+// first walk and used by the next with the same test, which skips pass 1
+// (the window forms' sweep 2 walks its window twice). Returns how many
+// were listed.
+template <int G, int ROWS, class P, class Test, class Fn>
 __device__ __forceinline__ int walk_window(const SphConst& c, const int* occ,
-                                           const Lanes<G>& g, int iy, int ix,
-                                           WinMask* memo, Test&& test,
-                                           Fn&& fn) {
-  const int K = c.K, R3 = 3 * K, W = ROWS * R3, nx2 = c.nx + 2;
+                                           const Lanes<G>& g, int iy,
+                                           const P& place, WinMask* memo,
+                                           Test&& test, Fn&& fn) {
+  const int K = c.K, R3 = 3 * K, W = ROWS * R3;
   int n = 0;
   for (int dy0 = 0; dy0 < 3; dy0 += ROWS) {
     for (int b0 = 0; b0 < W; b0 += kPiece) {
@@ -590,14 +640,13 @@ __device__ __forceinline__ int walk_window(const SphConst& c, const int* occ,
         for (int q = 0; q < kMaskWords; ++q) m[q] = memo->m[q];
       } else {
         for (int dr = 0; dr < ROWS; ++dr) {
-          const int row = iy + dy0 + dr;  // halo'd cell row
-          const int jn = row >= 1 && row <= c.nyp ? occ[(row - 1) / c.R] : 0;
+          const int jn = row_occ(c, occ, iy + dy0 + dr);  // halo'd cell row
 #pragma unroll 1
           for (int u = g.lane; u < 3 * jn; u += G) {
             const int j = u / 3, dx = u - 3 * j;
             const int w = dr * R3 + dx * K + j - b0;
             if (W > kPiece && (w < 0 || w >= kPiece)) continue;
-            if (test((row * K + j) * nx2 + ix + dx)) {
+            if (test(place.at(dy0 + dr, j, dx))) {
 #pragma unroll
               for (int q = 0; q < kMaskWords; ++q)
                 if ((w >> 5) == q) m[q] |= 1u << (w & 31);
@@ -625,7 +674,7 @@ __device__ __forceinline__ int walk_window(const SphConst& c, const int* occ,
           const int dr = ROWS == 1 ? 0 : (w >= R3) + (w >= 2 * R3);
           const int u = w - dr * R3;
           const int dx = (u >= K) + (u >= 2 * K), j = u - dx * K;
-          i = ((iy + dy0 + dr) * K + j) * nx2 + ix + dx;
+          i = place.at(dy0 + dr, j, dx);
         }
         fn(p < cnt, i, n + p);
       }
@@ -671,7 +720,8 @@ __device__ __forceinline__ void geo_each(const SphConst& c,
   if (xa < kParked) {
     if constexpr (WIDE) {
       n = walk_window<G, 1>(
-          c, b.occ, src, src.iy, src.ix, nullptr,
+          c, b.occ, src, src.iy, InCores{K, c.nx + 2, src.iy, src.ix},
+          nullptr,
           [&](int i) { return in_range(c, xa, ya, b.x[i], b.y[i]); },
           [&](bool on, int i, int p) {
             if (!on) return;
@@ -1025,16 +1075,15 @@ __device__ __forceinline__ void body3(const SphConst& c, const StepBufs& b,
   b.y2[p] = y2;
 }
 
-// ---- FORM_WIN: the sweeps' bodies again, with the pair terms handed to
-//      the lane group's ordered sums (geo_sum, kgc_sum, pair_sum below).
-//      They repeat body0..body3's arithmetic operation for operation, and
-//      chip_smoke.py holds their outputs to the rows kernels' (body0..
-//      body3 from shared memory, one thread a slot) bit for bit on every
-//      core. body0..body3 stay as they are for the cache and rows forms:
-//      written over these, their kernels compiled to other code (the cache
-//      form's sweep 0 ran 8% slower). ----
+// ---- FORM_WIN and FORM_ROWS: the sweeps' bodies again, with the pair
+//      terms handed to the lane group's ordered sums (geo_sum, kgc_sum,
+//      pair_sum below), over a window that lives where LWin's place says
+//      (the halo'd cores or the block's tile). They repeat body0..body3's
+//      arithmetic operation for operation; body0..body3 stay as they are
+//      for the cache form: written over these, its kernels compiled to
+//      other code (its sweep 0 ran 8% slower). ----
 
-// FORM_WIN: the group walks the anchor's window (walk_window), each lane
+// The window forms: the group walks the anchor's window (walk_window), each lane
 // computes the terms of the valid candidate it holds, and every lane adds
 // the round's terms in window order, lane 0's first: the shuffles give all
 // lanes the same values, so all end with the same sums, and those are the
@@ -1042,22 +1091,28 @@ __device__ __forceinline__ void body3(const SphConst& c, const StepBufs& b,
 // bit on a finite state (an invalid candidate's terms are +-0, which leave
 // a sum that starts at +0 as it is). An anchor parked at x = 1e9 (an empty
 // slot) has no valid candidate: its sums stay +0.
-template <int N, int G, int ROWS, class Fn>
+template <int N, int G, int ROWS, class P, class Fn>
 __device__ __forceinline__ void geo_sum(const SphConst& c,
-                                        const LWin<G, ROWS>& src, float xa,
-                                        float ya, bool need_w, float (&s)[N],
-                                        Fn&& fn) {
+                                        const LWin<G, ROWS, P>& src,
+                                        float xa, float ya, bool need_w,
+                                        float (&s)[N], Fn&& fn) {
   if (xa >= kParked) return;
-  const StepBufs& b = src.b;
   walk_window<G, ROWS>(
-      c, b.occ, src, src.iy, src.ix, &src.memo,
-      [&](int i) { return in_range(c, xa, ya, b.x[i], b.y[i]); },
+      c, src.b.occ, src, src.iy, src.place, &src.memo,
+      [&](int i) {
+        return in_range(c, xa, ya, src.template ld<F_X>(i),
+                        src.template ld<F_Y>(i));
+      },
       [&](bool on, int i, int) {
         float t[N];
 #pragma unroll
         for (int q = 0; q < N; ++q) t[q] = 0.0f;
         if (on)
-          fn(i, geometry(c, xa, ya, b.x[i], b.y[i], b.isf[i], need_w), t);
+          fn(i,
+             geometry(c, xa, ya, src.template ld<F_X>(i),
+                      src.template ld<F_Y>(i), src.template ld<F_ISF>(i),
+                      need_w),
+             t);
         // the lanes that hold a candidate are lanes 0 .. m-1
         const int m = __popc(__ballot_sync(src.mask, on) & src.mask);
         for (int l = 0; l < m; ++l) {
@@ -1069,9 +1124,9 @@ __device__ __forceinline__ void geo_sum(const SphConst& c,
 }
 
 // sweep 1: (rf, ex, ey) per pair, rf = r*dw*Vol_j*(m1+mw)
-template <int N, int G, int ROWS, class Fn>
+template <int N, int G, int ROWS, class P, class Fn>
 __device__ __forceinline__ void kgc_sum(const SphConst& c,
-                                        const LWin<G, ROWS>& src, float xa,
+                                        const LWin<G, ROWS, P>& src, float xa,
                                         float ya, float (&s)[N], Fn&& fn) {
   geo_sum(c, src, xa, ya, false, s,
           [&](int i, const Geo& g, auto& t) {
@@ -1081,9 +1136,9 @@ __device__ __forceinline__ void kgc_sum(const SphConst& c,
 }
 
 // sweeps 2-3: (i, r, ex, ey, dw*Vol_j*m1, dw*Vol_j*mw) per pair
-template <int N, int G, int ROWS, class Fn>
+template <int N, int G, int ROWS, class P, class Fn>
 __device__ __forceinline__ void pair_sum(const SphConst& c,
-                                         const LWin<G, ROWS>& src, float xa,
+                                         const LWin<G, ROWS, P>& src, float xa,
                                          float ya, float (&s)[N], Fn&& fn) {
   geo_sum(c, src, xa, ya, false, s,
           [&](int i, const Geo& g, auto& t) {
@@ -1094,10 +1149,10 @@ __device__ __forceinline__ void pair_sum(const SphConst& c,
 
 // ---- sweep 0: density, Vol, half-kick EOS, pair count
 //      (sph_physics_mex.c:178-234, :857-865; fused_cell.py:643-729) ----
-template <int G, int ROWS>
+template <int G, int ROWS, class P>
 __device__ __forceinline__ void body0(const SphConst& c, const StepBufs& b,
                                       const Slot& s,
-                                      const LWin<G, ROWS>& src) {
+                                      const LWin<G, ROWS, P>& src) {
   float vol = 0.0f, rho_half = 0.0f, p_half = 0.0f, cnt = 0.0f;
   if (s.visited) {
     const float dt = b.dyn[0];
@@ -1135,10 +1190,10 @@ __device__ __forceinline__ void body0(const SphConst& c, const StepBufs& b,
 
 // ---- sweep 1: kernel gradient correction B (c:239-365;
 //      fused_cell.py:731-816) ----
-template <int G, int ROWS>
+template <int G, int ROWS, class P>
 __device__ __forceinline__ void body1(const SphConst& c, const StepBufs& b,
                                       const Slot& s,
-                                      const LWin<G, ROWS>& src) {
+                                      const LWin<G, ROWS, P>& src) {
   float o11 = 0.0f, o12 = 0.0f, o21 = 0.0f, o22 = 0.0f;
   if (s.visited) {
     const float xa = b.x[s.ha], ya = b.y[s.ha], af = b.isf[s.ha];
@@ -1189,10 +1244,10 @@ __device__ __forceinline__ void body1(const SphConst& c, const StepBufs& b,
 //      (c:466-545, :633-709, :867-957, :1388-1409;
 //      fused_cell.py:818-965). Two candidate passes: the virtual wall
 //      pressure needs the anchor's completed prior force. ----
-template <int G, int ROWS>
+template <int G, int ROWS, class P>
 __device__ __forceinline__ void body2(const SphConst& c, const StepBufs& b,
                                       const Slot& s,
-                                      const LWin<G, ROWS>& src) {
+                                      const LWin<G, ROWS, P>& src) {
   float vx2 = 0.0f, vy2 = 0.0f, fx = 0.0f, fy = 0.0f, fpx = 0.0f, fpy = 0.0f,
         dxs = 0.0f, dys = 0.0f;
   if (s.visited) {
@@ -1283,10 +1338,10 @@ __device__ __forceinline__ void body2(const SphConst& c, const StepBufs& b,
 
 // ---- sweep 3: continuity, final rho/p, positions (c:1073-1116,
 //      :1429-1451; fused_cell.py:967-1078) ----
-template <int G, int ROWS>
+template <int G, int ROWS, class P>
 __device__ __forceinline__ void body3(const SphConst& c, const StepBufs& b,
                                       const Slot& s,
-                                      const LWin<G, ROWS>& src) {
+                                      const LWin<G, ROWS, P>& src) {
   const int ha = s.ha, p = pix(c, s.iy, s.k, s.ix);
   const float xa = b.x[ha], ya = b.y[ha];
   float rho_new = 0.0f, p_new = 0.0f, drho_new = 0.0f, x2 = xa, y2 = ya;
@@ -1342,22 +1397,6 @@ using SweepFields = std::conditional_t<
     std::conditional_t<S == 1, Fields1,
                        std::conditional_t<S == 2, Fields2, Fields3>>>;
 
-// FORM_ROWS sweep S: the block stages its window rows, then each thread
-// walks its anchor's 9K candidates from shared memory
-template <int S>
-__global__ void __launch_bounds__(128)
-    rows_sweep(SphConst c, StepBufs b) {
-  if (b.dyn[4] == 0.0f) return;  // the chunk's interval or n_sub is done
-  using FS = SweepFields<S>;
-  extern __shared__ float tile_sm[];
-  Slot s;
-  int x0;
-  const bool on = tile_slot(c, b.occ, s, x0);
-  FS::stage(c, b, tile_sm, s.iy, x0);
-  __syncthreads();
-  if (on) body<S>(c, b, s, Tile<FS>{c, tile_sm, s.ix - x0});
-}
-
 // FORM_WIN sweep S, G lanes per anchor slot (slots in the (iy, k, ix)
 // order, ix fastest). The walk is latency-bound, so the kernels are held
 // to 64 registers (eight blocks of 128 threads an SM) and pass 1 is not
@@ -1370,7 +1409,31 @@ __global__ void __launch_bounds__(128, 8)
   Slot s;
   Lanes<G> g;
   if (!group_slot<G>(c, b.occ, s, g)) return;
-  body<S>(c, b, s, LWin<G, ROWS>{g, c, b, s.iy, s.ix});
+  body<S>(c, b, s,
+          LWin<G, ROWS, InCores>{g, c, b, s.iy,
+                                 {c.K, c.nx + 2, s.iy, s.ix}});
+}
+
+// FORM_ROWS sweep S, G lanes per anchor slot: the block stages its window
+// into shared memory, then each group walks its anchor's window from
+// there. At most 1024 threads a block, so at most 64 registers a thread,
+// the recompute kernels' budget
+template <int S, int G, int ROWS>
+__global__ void __launch_bounds__(1024)
+    rows_sweep(SphConst c, StepBufs b) {
+  if (b.dyn[4] == 0.0f) return;  // the chunk's interval or n_sub is done
+  using FS = SweepFields<S>;
+  extern __shared__ float tile_sm[];
+  Slot s;
+  Lanes<G> g;
+  int x0;
+  const bool on = tile_slot<G>(c, b.occ, s, g, x0);
+  FS::stage(c, b, tile_sm, s.iy, x0);
+  __syncthreads();
+  if (on)
+    body<S>(c, b, s,
+            LWin<G, ROWS, InTile<FS>>{g, c, b, s.iy,
+                                      {tile_sm, c.K, c.tx + 2, s.ix - x0}});
 }
 
 // FORM_CACHE sweep S, G lanes per anchor slot: a cached slot's sweep 0
@@ -1559,7 +1622,7 @@ __global__ void __launch_bounds__(128) shear(SphConst c, ShearBufs b) {
     const float b11a = b.b11[ha], b12a = b.b12[ha], b21a = b.b21[ha],
                 b22a = b.b22[ha];
     walk_window<G, 3>(
-        c, b.occ, g, s.iy, s.ix, nullptr,
+        c, b.occ, g, s.iy, InCores{c.K, c.nx + 2, s.iy, s.ix}, nullptr,
         [&](int i) {
           return b.isf[i] == 0.0f && in_range(c, xa, ya, b.x[i], b.y[i]);
         },
@@ -1664,15 +1727,36 @@ __global__ void __launch_bounds__(128) expand(const float* v, float* out,
 
 inline int blocks_for(int n, int per) { return (n + per - 1) / per; }
 
-// FORM_ROWS sweep S; its window needs the kernel's opt-in when its dynamic
-// shared memory exceeds 48 KB, set for each launched sweep
-template <int S>
+// FORM_ROWS sweep S: tiles of c.tx columns of one cell row, c.tx*K*G
+// threads a block; its tile needs the kernel's opt-in when it exceeds 48
+// KB of dynamic shared memory, set for each launched sweep
+template <int S, int G, int ROWS>
 void launch_rows(const SphConst& c, const StepBufs& b, cudaStream_t st) {
-  const size_t sm = sizeof(float) * 3 * c.K * (c.tx + 2) * SweepFields<S>::n;
+  const size_t sm =
+      sizeof(float) * 3 * c.K * (c.tx + 2) * SweepFields<S>::n;
   if (sm > 48 * 1024)
-    cudaFuncSetAttribute(rows_sweep<S>,
+    cudaFuncSetAttribute(rows_sweep<S, G, ROWS>,
                          cudaFuncAttributeMaxDynamicSharedMemorySize, sm);
-  rows_sweep<S><<<c.nyp * blocks_for(c.nx, c.tx), c.tx * c.K, sm, st>>>(c, b);
+  rows_sweep<S, G, ROWS><<<c.nyp * blocks_for(c.nx, c.tx), c.tx * c.K * G,
+                           sm, st>>>(c, b);
+}
+
+// the whole window in one piece of the walk where 9K <= 128, else row by
+// row
+template <int G>
+void launch_rows(const SphConst& c, const StepBufs& b, int s,
+                 cudaStream_t st) {
+  if (9 * c.K <= kPiece) {
+    if (s == 0) launch_rows<0, G, 3>(c, b, st);
+    else if (s == 1) launch_rows<1, G, 3>(c, b, st);
+    else if (s == 2) launch_rows<2, G, 3>(c, b, st);
+    else launch_rows<3, G, 3>(c, b, st);
+  } else {
+    if (s == 0) launch_rows<0, G, 1>(c, b, st);
+    else if (s == 1) launch_rows<1, G, 1>(c, b, st);
+    else if (s == 2) launch_rows<2, G, 1>(c, b, st);
+    else launch_rows<3, G, 1>(c, b, st);
+  }
 }
 
 // FORM_WIN sweep S, G lanes per anchor slot; the whole window in one piece
@@ -1752,11 +1836,13 @@ cudaError_t sweeps(const SphConst& c, const StepBufs& b, const CacheBufs& cb,
         return cudaErrorInvalidValue;
     }
   } else if (form == FORM_ROWS) {
+    if (c.tx < 1 || c.tx * c.K * c.rg > 1024) return cudaErrorInvalidValue;
     for (int s = first; s < first + count; ++s) {
-      if (s == 0) launch_rows<0>(c, b, st);
-      else if (s == 1) launch_rows<1>(c, b, st);
-      else if (s == 2) launch_rows<2>(c, b, st);
-      else launch_rows<3>(c, b, st);
+      if (c.rg == 4) launch_rows<4>(c, b, s, st);
+      else if (c.rg == 8) launch_rows<8>(c, b, s, st);
+      else if (c.rg == 16) launch_rows<16>(c, b, s, st);
+      else if (c.rg == 32) launch_rows<32>(c, b, s, st);
+      else return cudaErrorInvalidValue;
     }
   } else if (form == FORM_WIN) {
     for (int s = first; s < first + count; ++s) {

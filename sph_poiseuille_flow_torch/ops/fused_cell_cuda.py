@@ -65,6 +65,16 @@ CACHE_G_MAX = 8           # lanes per anchor in sweeps 1-3 at most
 # csrc/fused_cell.cu instantiates each for every sweep
 WIN_GROUPS = CACHE_GROUPS0
 
+# the rows form's tiles (``rows_tile``): lanes per anchor slot (each
+# instantiated for every sweep), the threads a block should hold and can
+# hold at most (rows_sweep's launch bounds), the fields its widest sweep
+# stages (sweep 2) and the shared memory a block can opt in to (bytes)
+ROWS_GROUPS = WIN_GROUPS
+ROWS_BLOCK = 256
+ROWS_BLOCK_MAX = 1024
+ROWS_FIELDS = 14
+SMEM_MAX = 232_448
+
 _lib = None
 
 
@@ -75,7 +85,8 @@ def reset_launch_counts() -> None:
 
 class _Const(ctypes.Structure):
     _fields_ = ([(n, ctypes.c_int) for n in ("nyp", "K", "nx", "R", "kcut",
-                                              "ncs", "tx", "cg0", "cg", "wg")]
+                                              "ncs", "tx", "cg0", "cg", "wg",
+                                              "rg")]
                 + [(n, ctypes.c_float) for n in (
                     "DL", "h", "cut2", "sigma", "sig025", "c225soh",
                     "c3soh", "cm075soh", "rho0", "p0", "c_f", "inv_sigma0",
@@ -183,11 +194,45 @@ def win_groups(n_slots: int) -> int:
     return cache_groups(n_slots)[0]
 
 
+def rows_smem(K: int, tx: int) -> int:
+    """Bytes of the rows form's widest tile (sweep 2's ROWS_FIELDS fields,
+    3 cell rows x K ranks x tx+2 columns each; csrc/fused_cell.cu
+    ``FieldSet::stage``)."""
+    return 4 * ROWS_FIELDS * 3 * K * (tx + 2)
+
+
+def rows_tile(K: int, n_slots: int, nx: int) -> tuple:
+    """(TX, G): the rows form's tile, TX cell columns of one cell row x K
+    ranks x G lanes per anchor slot. G is half the recompute form's pick
+    (``win_groups``; both walk the same window in lane groups, but a rows
+    block also holds the ranks past each row's occupancy bound), at least
+    the fewest of ROWS_GROUPS, cut to the largest that lets one column of
+    K ranks fit a block; TX fills ROWS_BLOCK threads (at least one column,
+    at most nx). Raises where no tile fits a block's threads or shared
+    memory. On the H100 this pick was within 1% of the fastest of it and
+    its neighbours at dp=0.01 and dp=0.025 (chip_smoke.py phase 4 times
+    them; PERF.md)."""
+    g = max(ROWS_GROUPS[0], win_groups(n_slots) // 2)
+    fits = [G for G in ROWS_GROUPS if G <= g and K * G <= ROWS_BLOCK_MAX]
+    if not fits:
+        raise ValueError(
+            f"no rows-form tile fits K={K}: one cell column of K ranks x "
+            f"{ROWS_GROUPS[0]} lanes is {K * ROWS_GROUPS[0]} threads, more "
+            f"than a block's {ROWS_BLOCK_MAX}")
+    G = fits[-1]
+    tx = max(1, min(nx, ROWS_BLOCK // (K * G)))
+    if rows_smem(K, tx) > SMEM_MAX:
+        raise ValueError(f"no rows-form tile fits K={K}: {rows_smem(K, tx)} "
+                         f"bytes of shared memory, more than {SMEM_MAX}")
+    return tx, G
+
+
 def _const(spec, R: int, rho0, p0, c_f, inv_sigma0, transport_coeff,
-           kcut: int = 0):
+           kcut: int = 0, rows: bool = False):
     """Kernel constants, each rounded once from float64 as the JAX
     package's weakly-typed Python scalars are. ``kcut``: cached anchor
-    ranks of the geometry-cache form."""
+    ranks of the geometry-cache form; ``rows``: the rows form's tile
+    (``rows_tile``) is set, else left 0."""
     h = spec.h
     sigma = sigma_2d(h)
     soh = sigma / h
@@ -199,10 +244,14 @@ def _const(spec, R: int, rho0, p0, c_f, inv_sigma0, transport_coeff,
     wg = win_groups(nyp * spec.K * spec.nx)
     if wg not in WIN_GROUPS:
         raise ValueError(f"lanes per anchor {wg} not in {WIN_GROUPS}")
+    tx, rg = rows_tile(spec.K, nyp * spec.K * spec.nx, spec.nx) if rows \
+        else (0, 0)
+    if rows and (rg not in ROWS_GROUPS
+                 or not 1 <= tx * spec.K * rg <= ROWS_BLOCK_MAX):
+        raise ValueError(f"rows tile ({tx}, {rg}) does not fit a block")
     return _Const(
         nyp=nyp, K=spec.K, nx=spec.nx, R=R, kcut=kcut,
-        ncs=nyp * kcut * spec.nx, tx=max(1, 128 // spec.K), cg0=cg0, cg=cg,
-        wg=wg,
+        ncs=nyp * kcut * spec.nx, tx=tx, cg0=cg0, cg=cg, wg=wg, rg=rg,
         DL=spec.DL, h=h,
         cut2=spec.cutoff * spec.cutoff, sigma=sigma, sig025=sigma * 0.25,
         c225soh=2.25 * soh, c3soh=3.0 * soh, cm075soh=-0.75 * soh,
@@ -347,7 +396,8 @@ def _step_setup(spec, R: int, lay, xH, yH, vxH, vyH, drP, dt, scalars,
     dyn = _dyn(dt, g, mu, wf, dev)
     bufs, out = _step_bufs(spec, R, lay, xH, yH, vxH, vyH, drP, dyn)
     cache, keep = _cache_bufs(spec, R, kcut, dev)
-    c = _const(spec, R, rho0, p0, c_f, inv_sigma0, transport_coeff, kcut)
+    c = _const(spec, R, rho0, p0, c_f, inv_sigma0, transport_coeff, kcut,
+               rows=kform == 2)
     return lib, kform, c, bufs, out, dyn, cache, keep
 
 
@@ -485,7 +535,8 @@ def chunk(spec, R: int, lay, xH, yH, vxH, vyH, drP, t_local, t_comp,
     steps = torch.tensor([0, int(n_sub)], dtype=torch.int32).to(dev)
     vmax2 = torch.zeros(1, dtype=torch.int32, device=dev)
     cache, keep = _cache_bufs(spec, R, kcut, dev)
-    c = _const(spec, R, rho0, p0, c_f, inv_sigma0, transport_coeff, kcut)
+    c = _const(spec, R, rho0, p0, c_f, inv_sigma0, transport_coeff, kcut,
+               rows=kform == 2)
     with torch.cuda.device(dev):
         _raise_on(lib.sph_chunk(ctypes.addressof(c), ctypes.addressof(bufs),
                                 ctypes.addressof(cache), kform,

@@ -1,9 +1,9 @@
 #!/usr/bin/env python3
 """Time the kernels of one tree of this repository on the card (the wall
-shear, the expand, the no-op, the step and chunk in the recompute and cache
-forms), and dump the shear's per-slot partials and the recompute form's
-step and chunk outputs, so that two trees (a change and its parent) can be
-compared in turns on one card.
+shear, the expand, the no-op, the step and chunk in the recompute, cache
+and rows forms), and dump the shear's per-slot partials and the recompute
+and rows forms' step and chunk outputs, so that two trees (a change and its
+parent) can be compared in turns on one card.
 
     python3 tools/kernel_ab.py --root TREE --tag NAME [--cli N] [--cli-a]
         [--out DIR]
@@ -31,8 +31,8 @@ three rounds of 200):
   ``copy_`` of the same x row, five rounds of each in turns, queued;
 * at (b), at dp=0.025 (``chip_smoke.DP0025``) and on the K=48 grid
   (``chip_smoke.K48``, where a window row is walked in pieces), in the
-  recompute form ("none") and in the form "auto" picks (a cache form;
-  ``cache_sweep_wide`` at K=48), with the seeded
+  recompute form ("none"), in the form "auto" picks (a cache form;
+  ``cache_sweep_wide`` at K=48) and in the rows form, with the seeded
   jitter and a real dt: ``{grid}:{form}:step_bufs`` (the four sweeps on
   persistent buffers, ``StepBuffers``), ``{grid}:{form}:sweep{s}`` (each
   sweep relaunched on them), both queued, and ``{grid}:{form}:chunk16``
@@ -46,11 +46,13 @@ Writes ``DIR/NAME.json`` (the times, the card's name and power limit;
 ``DIR`` is ``results/ab`` by default) and ``DIR/NAME.npz``: tb, tt of one
 shear launch, and the recompute form's step outputs and 16-step chunk
 outputs (state, cores, steps, clock) at (b), at config.ini's grid and at
-K=48 (``{grid}:step:*``, ``{grid}:chunk16:*``), and the cache form's at
-K=48 (``k48:cache:*``); each of those is launched twice
-and the JSON's ``repeat_bit_equal`` says whether the two launches agree
-bit for bit. ``--compare`` says whether two dumps are equal bit for bit,
-array by array.
+K=48 (``{grid}:step:*``, ``{grid}:chunk16:*``), the rows form's there too
+(``{grid}:rows:*``) and the cache form's at K=48 (``k48:cache:*``); each
+of those is launched twice and the JSON's ``repeat_bit_equal`` says
+whether the two launches agree bit for bit, ``rows_vs_none_bit_equal``
+whether the rows form's outputs equal the recompute form's at each grid.
+``--compare`` says whether two dumps are equal bit for bit, array by
+array.
 """
 
 from __future__ import annotations
@@ -114,23 +116,29 @@ def _grid(cs, name: str, dev):
     return cfg, spec, lay, args5, sc, dt
 
 
-def _forms(cs, dev, dump: dict, ms: dict) -> bool:
-    """The recompute and cache forms' times at (b), dp=0.025 and K=48 into
-    ``ms``; the recompute form's step and chunk outputs at (b), config.ini's
-    grid and K=48, and the cache form's at K=48, into ``dump``. Returns
-    whether two launches of each dumped call agreed bit for bit."""
+# the forms timed and dumped: (label, spec knobs)
+FORMS = (("none", dict(geom_cache="none")), ("cache", {}),
+         ("rows", dict(fused_rows="1")))
+
+
+def _forms(cs, dev, dump: dict, ms: dict) -> tuple:
+    """The recompute, cache and rows forms' times at (b), dp=0.025 and K=48
+    into ``ms``; the recompute and rows forms' step and chunk outputs at
+    (b), config.ini's grid and K=48, and the cache form's at K=48, into
+    ``dump``. Returns whether two launches of each dumped call agreed bit
+    for bit, and {grid: whether the rows form's dump equals the recompute
+    form's bit for bit}."""
     import dataclasses
     import torch
     from sph_poiseuille_flow_torch.ops import fused_cell as fc
     from sph_poiseuille_flow_torch.ops import fused_cell_cuda as fcc
     from sph_poiseuille_flow_torch.probe import event_ms
 
-    same = True
+    same, rows_none = True, {}
     for grid in ("b", "d025", "k48", "a"):
         cfg, spec, lay, args5, sc, dt = _grid(cs, grid, dev)
         R = fc.plan(spec)[0]
-        for label, knobs in (("none", dict(geom_cache="none")),
-                             ("cache", {})):
+        for label, knobs in FORMS:
             fspec = dataclasses.replace(spec, **knobs)
             if grid != "a":
                 form = fc.step_form(fspec, torch.float32)
@@ -145,7 +153,7 @@ def _forms(cs, dev, dump: dict, ms: dict) -> bool:
                 ms[f"{key}:chunk16"] = event_ms(
                     lambda: fc.fused_chunk_call(fspec, lay, *args5, 0.0,
                                                 0.0, 1.0, 16, *sc), 20)
-            if grid == "d025" or (label != "none" and grid != "k48"):
+            if grid == "d025" or (label == "cache" and grid != "k48"):
                 continue
             runs = [(fc.fused_step_cores(fspec, lay, *args5, dt, *sc),
                      fc.fused_chunk_call(fspec, lay, *args5, 0.0, 0.0, 1.0,
@@ -166,7 +174,12 @@ def _forms(cs, dev, dump: dict, ms: dict) -> bool:
             same &= all(flat[0][k].tobytes() == flat[1][k].tobytes()
                         for k in flat[0])
             dump.update(flat[0])
-    return same
+            if label == "rows":
+                rows_none[grid] = all(
+                    v.tobytes() == dump[k.replace(f"{grid}:rows:",
+                                                  f"{grid}:")].tobytes()
+                    for k, v in flat[0].items())
+    return same, rows_none
 
 
 def main(argv=None) -> int:
@@ -244,11 +257,11 @@ def main(argv=None) -> int:
         ms["noop"].append(event_ms(b.noop, 200, queued=True))
         ms["copy_"].append(event_ms(lambda: row.copy_(src), 200,
                                     queued=True))
-    same = _forms(cs, dev, dump, ms)
+    same, rows_none = _forms(cs, dev, dump, ms)
     os.makedirs(args.out, exist_ok=True)
     np.savez(os.path.join(args.out, f"{args.tag}.npz"), **dump)
     res = dict(tag=args.tag, root=root, card=card_line(), ms=ms,
-               repeat_bit_equal=same,
+               repeat_bit_equal=same, rows_vs_none_bit_equal=rows_none,
                shear_bound=roofline.bound("shear", spec, n),
                expand_bound=roofline.expand_bound(9 * spec.K, spec.nx,
                                                   spec.K))
