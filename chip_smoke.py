@@ -60,13 +60,21 @@ Phases, each of which exits non-zero on failure before the last line:
    ``config.ini`` run with ``--step-log-every``, whose log rows are
    printed; (d) a short ``config.ini`` run with ``--dtype float64``,
    which "auto" sends to the cell-layout engine of plain torch ops (no
-   kernel may launch). The launch counts are reset to 0 before each run
-   and each kernel of the form the run selects must be nonzero after it;
+   kernel may launch); (e) ``--engine gather`` on ``config.ini`` for
+   0.1 s in float32 and in float64, the packed-gather engine of plain
+   torch ops (``stepper.Engine``; no kernel may launch). The launch
+   counts are reset to 0 before each run and each kernel of the form the
+   run selects must be nonzero after it;
 3b. the cell-layout engine (``CellEngine``) on the card over 0.05 s of
    ``config.ini``: in float32 against the fused engine (the same steps,
    every field within the tolerances of tests/test_pallas.py:63-72), in
    float64 with clean flags and within 1e-3 of the float32 run in each
-   field's own unit (a sanity check, not a parity gate);
+   field's own unit (a sanity check, not a parity gate); then the gather
+   engine against ``CellEngine``: one step from config.ini's seeded
+   jittered state in float32 (tests/test_cellgrid.py:110-117's
+   tolerances) and in float64 (every field within 1e-10 of its scale),
+   and 0.05 s from rest in float32 (the same steps and pairs, v_max and
+   tau within :128-134's tolerances);
 4. time each kernel and form against its plain version with CUDA events
    at the (b) shapes and at dp=0.025, and the cache chunk at each lane
    group size of its sweep 0 and of its sweeps 1-3
@@ -78,7 +86,12 @@ Phases, each of which exits non-zero on failure before the last line:
    lanes per anchor) and its neighbours;
    the wall shear through its wrapper and its kernel alone on its
    persistent buffers; and the no-op on a step's buffers against a row
-   ``copy_``, in turns, five times each, with their spread.
+   ``copy_``, in turns, five times each, with their spread;
+5. ``bench_torch.measure(0.025)``, the port's benchmark with its full
+   protocol (five warm and five timed 0.5 s intervals), whose JSON is
+   printed on a line of its own; it fails on a dirty flag or a malformed
+   line. (The three-scale ``python3 bench_torch.py`` is not repeated
+   here.)
 
 Prints the card's name and power limit, a ``{"kernels": [...]}`` line
 (each kernel with its time, its plain version's and the least time the
@@ -809,6 +822,7 @@ def _run_cli(name: str, ini_text, extra, capture: bool = False) -> dict:
     orig_run = simulation.Simulation.run
 
     def run_and_keep(self):
+        captured["engine"] = type(self.engine).__name__
         captured["result"] = orig_run(self)
         return captured["result"]
 
@@ -825,6 +839,7 @@ def _run_cli(name: str, ini_text, extra, capture: bool = False) -> dict:
     finally:
         simulation.Simulation.run = orig_run
     res = captured["result"]
+    res["engine"] = captured["engine"]
     res["rc"] = rc
     res["wall_total"] = wall
     res["stdout"] = buf.getvalue()
@@ -962,6 +977,33 @@ def phase_main() -> dict:
         raise AssertionError("(d) float64: not a finite float64 run on the "
                              "card")
     _launched("d", counts["d"], set())
+
+    # (e) the packed-gather engine, plain torch ops on the card, in float32
+    # and float64: no kernel of the port launches
+    for name, dtype in (("e", "float32"), ("e64", "float64")):
+        fcc.reset_launch_counts()
+        re_ = _run_cli(f"{name}_gather", None,
+                       ["--engine", "gather", "--dtype", dtype, "--set",
+                        "simulation.end_time=0.1", "--set",
+                        "simulation.output_interval=0.05"])
+        counts[name] = dict(fcc.LAUNCHES)
+        runs[name] = re_
+        st = re_["final_state"]
+        _say(f"main ({name}) config.ini --engine gather {dtype}: "
+             f"engine={re_['engine']} steps={re_['step']} t={re_['t']:.3f} "
+             f"tau_bottom={re_['tau_bottom']:.6f} dtype={st.x.dtype} "
+             f"device={st.x.device} "
+             f"psteps/s={re_['particle_steps_per_sec']:.4e} "
+             f"host_syncs={re_['host_syncs']} launches={counts[name]}")
+        if (re_["engine"] != "Engine" or st.x.dtype != getattr(torch, dtype)
+                or st.x.device.type != "cuda"
+                or not all(bool(torch.isfinite(getattr(st, f)).all())
+                           for f in st._fields)
+                or not math.isfinite(re_["tau_bottom"])
+                or not math.isfinite(re_["tau_top"]) or re_["step"] <= 0):
+            raise AssertionError(f"({name}) gather {dtype}: not a finite "
+                                 "run of the gather engine on the card")
+        _launched(name, counts[name], set())
     return dict(runs=runs, counts=counts)
 
 
@@ -1032,7 +1074,149 @@ def phase_cellgrid(device) -> dict:
     _say(f"cellgrid: f32 vs fused {fused.n_steps} steps each, worst field at "
          f"{worst32:.3f} of the tests/test_pallas.py tolerance; f64 vs f32 "
          f"worst {worst64:.2e} of the field's scale (bound 1e-3)")
-    return dict(worst32=worst32, worst64=worst64, steps=c32.n_steps)
+    gather = phase_gather(device, base, scene, c32)
+    return dict(worst32=worst32, worst64=worst64, steps=c32.n_steps,
+                gather=gather)
+
+
+def _jittered_state(cfg, scene, device):
+    """``initial_state`` with the seeded jitter of ``_jittered_case``
+    (positions, velocities, drho) in ``cfg``'s dtype."""
+    import numpy as np
+    import torch
+    from sph_poiseuille_flow_torch.stepper import initial_state
+
+    rng = np.random.default_rng(7)
+    nf, n = scene.n_fluid, scene.n_total
+    x = np.asarray(scene.x, np.float64).copy()
+    y = np.asarray(scene.y, np.float64).copy()
+    x[:nf] = np.mod(x[:nf] + rng.uniform(-0.35, 0.35, nf) * cfg.dp, cfg.DL)
+    y[:nf] += rng.uniform(-0.35, 0.35, nf) * cfg.dp
+    vx, vy, dr = (np.zeros(n) for _ in range(3))
+    vx[:nf] = rng.normal(0, 0.4, nf)
+    vy[:nf] = rng.normal(0, 0.1, nf)
+    dr[:nf] = rng.normal(0, 0.05, nf)
+    dtype = getattr(torch, cfg.dtype)
+    return initial_state(cfg, scene, device)._replace(**{
+        k: torch.as_tensor(v, dtype=dtype, device=device) for k, v in
+        dict(x=x, y=y, vx=vx, vy=vy, drho_dt=dr).items()})
+
+
+def phase_gather(device, base, scene, c32) -> dict:
+    """The packed-gather engine (``Engine``) against ``CellEngine`` on the
+    card: one step from the jittered state in float32 (tests/
+    test_cellgrid.py:110-117) and float64 (1e-10 of each field's scale),
+    and 0.05 s of config.ini from rest in float32 against phase 3b's
+    ``CellEngine`` run (the same steps and pairs; v_max and tau within
+    tests/test_cellgrid.py:128-134's tolerances)."""
+    import numpy as np
+    import torch
+    from sph_poiseuille_flow_torch.stepper import (CellEngine, Engine,
+                                                   initial_state,
+                                                   make_engine)
+
+    out = {}
+    tols = {"p": (1e-2, 2.5e-2), "drho_dt": (5e-3, 5e-3)}
+    for dtype in ("float32", "float64"):
+        cfg = dataclasses.replace(base, engine="gather", dtype=dtype)
+        steps = []
+        for kind in (Engine, CellEngine):
+            eng = kind(cfg, scene, device)
+            s, lay, g, ovf = eng.init(_jittered_state(cfg, scene, device))
+            r = eng.step(s, lay, g, remain=1.0)
+            if bool(ovf) or bool(r[4]) or bool(r[5]):
+                raise AssertionError(f"gather ({dtype}): {kind.__name__} "
+                                     "flags not clean")
+            steps.append(r)
+        (ga, *gs), (ce, *cs) = steps[0], steps[1]
+        worst = 0.0
+        for f in ga._fields:
+            a = getattr(ce, f).double()
+            b = getattr(ga, f).double()
+            if b.dtype != torch.float64 or getattr(ga, f).dtype != getattr(
+                    torch, dtype) or b.device != a.device:
+                raise AssertionError(f"gather ({dtype}): {f} dtype/device")
+            if dtype == "float32":
+                rtol, atol = tols.get(f, (2e-3, 5e-4))
+                frac = float(((b - a).abs() / (atol + rtol * a.abs())).max())
+            else:
+                frac = float((b - a).abs().max()) / (
+                    1e-10 * max(1.0, float(a.abs().max())))
+            worst = max(worst, frac)
+            if not frac <= 1.0:
+                raise AssertionError(f"gather ({dtype}) step vs CellEngine: "
+                                     f"{f} off by {frac:.2f} of its "
+                                     "tolerance")
+        rel = 1e-6 if dtype == "float32" else 1e-10
+        trel = 1e-3 if dtype == "float32" else 1e-10
+        tabs = 1e-6 if dtype == "float32" else 0.0
+        dt_g, dt_c = float(gs[2]), float(cs[2])
+        if abs(dt_g - dt_c) > rel * abs(dt_c):
+            raise AssertionError(f"gather ({dtype}): dt {dt_g} vs {dt_c}")
+        for k in (5, 6):
+            tg, tc = float(gs[k]), float(cs[k])
+            if not abs(tg - tc) <= tabs + trel * abs(tc):
+                raise AssertionError(f"gather ({dtype}): tau {tg} vs {tc}")
+        out[f"step_{dtype}"] = worst
+        _say(f"gather ({dtype}): one jittered step against CellEngine, "
+             f"worst field at {worst:.3f} of its tolerance; dt {dt_g:.9e} / "
+             f"{dt_c:.9e}; tau_bottom {float(gs[5]):.9f} / "
+             f"{float(cs[5]):.9f}")
+
+    cfg = dataclasses.replace(base, engine="gather")
+    eng = make_engine(cfg, scene, device)
+    if type(eng) is not Engine:
+        raise AssertionError(f"gather: make_engine gave "
+                             f"{type(eng).__name__}")
+    t0 = time.perf_counter()
+    s, lay, g, ovf = eng.init(initial_state(cfg, scene, device))
+    r = eng.run_interval(s, lay, g, np.float32(0.05))
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    finite = all(bool(torch.isfinite(getattr(r.state, f)).all())
+                 for f in r.state._fields)
+    _say(f"gather (interval) Engine float32: {r.n_steps} steps in "
+         f"{wall:.2f} s, n_pairs={int(r.n_pairs)} (CellEngine "
+         f"{int(c32.n_pairs)}), v_max={float(r.v_max):.9f} "
+         f"({float(c32.v_max):.9f}), tau_bottom={float(r.tau_bottom):.9f} "
+         f"({float(c32.tau_bottom):.9f}), tau_top={float(r.tau_top):.9f} "
+         f"({float(c32.tau_top):.9f})")
+    if (bool(ovf) or bool(r.overflow) or r.skin_guard or not finite
+            or r.state.x.device != torch.device(device)):
+        raise AssertionError("gather (interval): flags or state not clean")
+    if r.n_steps != c32.n_steps or int(r.n_pairs) != int(c32.n_pairs):
+        raise AssertionError(f"gather (interval): steps {r.n_steps} / "
+                             f"{c32.n_steps}, pairs {int(r.n_pairs)} / "
+                             f"{int(c32.n_pairs)}")
+    if not abs(float(r.v_max) - float(c32.v_max)) <= 1e-3 * abs(
+            float(c32.v_max)):
+        raise AssertionError("gather (interval): v_max off")
+    for a, b in ((r.tau_bottom, c32.tau_bottom), (r.tau_top, c32.tau_top)):
+        if not abs(float(a) - float(b)) <= 1e-5 + 2e-3 * abs(float(b)):
+            raise AssertionError(f"gather (interval): tau {float(a)} vs "
+                                 f"{float(b)}")
+    out.update(interval_steps=r.n_steps, interval_wall_s=wall)
+    return out
+
+
+def phase_bench() -> dict:
+    """``bench_torch.measure(0.025)`` with its full protocol; it raises on
+    a dirty flag, and the line must have bench.py's keys, a positive
+    value and one positive entry per timed interval."""
+    import bench_torch
+    t0 = time.perf_counter()
+    out = bench_torch.measure(0.025)
+    keys = {"metric", "value", "unit", "vs_baseline", "mean_value",
+            "mean_vs_baseline", "intervals"}
+    if (set(out) != keys or out["metric"] != "particle_steps_per_sec_dp0.025"
+            or not out["value"] > 0 or len(out["intervals"]) != 5
+            or not all(v > 0 for v in out["intervals"])
+            or out["value"] != max(out["intervals"])):
+        raise AssertionError(f"bench: malformed line {out}")
+    _say(f"bench dp=0.025: best {out['value']:.4e} mean "
+         f"{out['mean_value']:.4e} particle-steps/s in "
+         f"{time.perf_counter() - t0:.1f} s")
+    return out
 
 
 def _time(fn, reps: int) -> float:
@@ -1326,6 +1510,7 @@ def main() -> int:
         main_res = phase_main()
         cell = phase_cellgrid(device)
         timing = phase_timing(device, kern["b"])
+        bench = phase_bench()
         _say(f"all phases done in {time.perf_counter() - t0:.1f} s")
     except Exception:
         traceback.print_exc()
@@ -1361,6 +1546,7 @@ def main() -> int:
     print(json.dumps({"timing": {f"{g}:{n}": v
                                  for (g, n), v in timing.items()}}))
     print(json.dumps({"cellgrid": cell}))
+    print(json.dumps({"bench": bench}))
     for run, r in main_res["runs"].items():
         print(json.dumps({"run": run, "L2_error": r["L2_error"],
                           "steps": r["step"], "t": r["t"],

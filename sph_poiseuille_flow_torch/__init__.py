@@ -8,20 +8,23 @@ row-outer forms the layout knobs select, and the wall-shear monitor -- as
 hand-written CUDA C++ for Hopper (``csrc/fused_cell.cu``) on CUDA tensors,
 and as their plain PyTorch twins on CPU tensors. ``python -m
 sph_poiseuille_flow_torch.probe`` times the step sweep by sweep through the
-probes' kernels (``ops/probes.py``).
+probes' kernels (``ops/probes.py``). The cell-layout engine
+(``CellEngine``) and the packed-gather engine (``Engine``) are plain torch
+ops, float32 or float64 on either device.
 """
 
 from .config import (SPHConfig, ConfigError, parse_ini, parse_ini_text,
                      get_ini_numeric, derive_config, load_config,
                      env_override)
 from .models.poiseuille import Scene, build_scene
-from .stepper import (PallasCellEngine, State, initial_state, make_engine,
-                      resolve_engine_name)
+from .stepper import (CellEngine, Engine, PallasCellEngine, State,
+                      initial_state, make_engine, resolve_engine_name)
 
 __all__ = [
     "SPHConfig", "ConfigError", "parse_ini", "parse_ini_text",
     "get_ini_numeric", "derive_config", "load_config", "env_override",
-    "Scene", "build_scene", "PallasCellEngine", "make_engine",
+    "Scene", "build_scene", "PallasCellEngine", "CellEngine", "Engine",
+    "make_engine",
     "resolve_engine_name", "State", "initial_state",
 ]
 

@@ -21,12 +21,9 @@ from typing import NamedTuple, Sequence
 
 import torch
 
+from .density import EPS_REG
 from .kernels import cubic_spline, w0
 from .neighbors import GridSpec, _cell_coords
-
-# Tikhonov regularisation of the KGC pseudo-inverse (the JAX package's
-# ops/density.EPS_REG; sph_physics_mex.c:321-365)
-EPS_REG = 1e-8
 
 
 class CellLayout(NamedTuple):

@@ -1,11 +1,19 @@
-"""Cell-grid geometry for the fused cell-layout engine (torch port).
+"""Cell-grid geometry and the packed-gather candidate engine (torch port
+of the JAX package's ``ops/neighbors.py``).
 
-Ports the parts of the JAX package's ``ops/neighbors.py`` that the fused
-and cell-layout engines reach: ``GridSpec``, ``make_grid_spec`` (with its
-lane-packed column picker ``_lane_packed_nx``), ``_cell_coords`` and
-``step_displacement_exceeded``. The grid choice
-is the JAX package's own, so cores compare one for one with it; tuning the
-grid for the GPU is left to a later change.
+``GridSpec``, ``make_grid_spec`` (with its lane-packed column picker
+``_lane_packed_nx``), ``_cell_coords`` and ``step_displacement_exceeded``
+serve every engine; the grid choice is the JAX package's own, so cores
+compare one for one with it. The rest is the gather engine's neighbor
+pipeline (``stepper.Engine``): bin every particle, gather the raw 3x3-cell
+candidates once per rebuild, compact each fluid row to its first ``C``
+candidates within ``2h + skin`` (``Candidates``), and per step rebuild
+the exact pair geometry at the cutoff ``2h`` from one packed gather
+(``Geometry``). Every pair appears once per direction in the dense
+``(n_fluid, C)`` rows; the operators (``ops/density.py``,
+``viscosity.py``, ``transport.py``, ``integration.py``, ``monitors.py``)
+take masked row sums over them. The compacted column order is the JAX
+package's, column for column, so the float32 row sums add in its order.
 """
 
 from __future__ import annotations
@@ -13,8 +21,11 @@ from __future__ import annotations
 import dataclasses
 import math
 import os
+from typing import NamedTuple, Sequence
 
 import torch
+
+from .kernels import cubic_spline
 
 
 @dataclasses.dataclass(frozen=True)
@@ -64,6 +75,21 @@ class GridSpec:
     @property
     def skin_y(self) -> float:
         return self.cell_y - self.cutoff
+
+    @property
+    def x_offsets(self):
+        """Static wrapped x-column offsets; deduplicated for tiny domains so
+        a cell is never visited twice (the reference dedups dynamically via
+        its seen_neighbor stamp, sph_neighbor_search_mex.c:298-303)."""
+        if self.nx >= 3:
+            return (-1, 0, 1)
+        if self.nx == 2:
+            return (0, 1)
+        return (0,)
+
+    @property
+    def n_raw_candidates(self) -> int:
+        return len(self.x_offsets) * 3 * self.K
 
 
 def _lane_packed_nx(cfg, cand_cutoff: float, y_span: float) -> int:
@@ -224,3 +250,187 @@ def step_displacement_exceeded(spec: GridSpec, x0, y0, x1, y1):
     ddx = ddx - spec.DL * torch.round(ddx / spec.DL)
     ddy = y1 - y0
     return torch.max(ddx * ddx + ddy * ddy) > (0.5 * spec.skin) ** 2
+
+
+class Candidates(NamedTuple):
+    """Compacted candidate set + rebuild-static per-neighbor data.
+    All (n_fluid, C) unless noted. Valid while no particle has moved more
+    than skin/2 since the rebuild."""
+
+    jsafe: torch.Tensor      # int64 neighbor index, clipped to n_total-1
+    cvalid: torch.Tensor     # 1.0 for real candidates (state dtype)
+    is_fluid_j: torch.Tensor  # 1.0 where neighbor is a fluid particle
+    mass_j: torch.Tensor
+    wvx_j: torch.Tensor      # prescribed wall velocity of neighbor
+    wvy_j: torch.Tensor
+    wall_bot: torch.Tensor   # 1.0 for bottom-wall neighbors (y_j <= 0)
+    wall_top: torch.Tensor   # 1.0 for top-wall neighbors (y_j >= DH)
+    ref_x: torch.Tensor      # (n_total,) positions at rebuild (skin guard)
+    ref_y: torch.Tensor
+    overflow: torch.Tensor   # 0-dim bool: cell or compaction capacity
+
+
+class Geometry(NamedTuple):
+    """Per-step pair geometry over the candidate set, masked to the exact
+    interaction cutoff r < 2h. All (n_fluid, C)."""
+
+    dx: torch.Tensor
+    dy: torch.Tensor
+    r: torch.Tensor        # 1.0 where invalid (safe division)
+    ex: torch.Tensor       # dx/r
+    ey: torch.Tensor
+    w: torch.Tensor        # 0 where invalid
+    dw: torch.Tensor       # 0 where invalid
+    mask_f: torch.Tensor   # 1.0 valid fluid-fluid
+    mask_w: torch.Tensor   # 1.0 valid fluid-wall
+    x_j: torch.Tensor      # gathered neighbor positions (reused by callers)
+    y_j: torch.Tensor
+    vol_j: torch.Tensor    # gathered neighbor volume (for the shear monitor)
+
+
+def gather_pack(jsafe: torch.Tensor, arrays: Sequence[torch.Tensor]):
+    """ONE packed gather of several (n_total,) arrays at (n_fluid, C)
+    indices: a (n_total, F) stack indexed once."""
+    g = torch.stack(list(arrays), dim=-1)[jsafe]      # (n_fluid, C, F)
+    return g.unbind(dim=-1)
+
+
+def _raw_candidates(spec: GridSpec, x, y):
+    """Bin all particles; gather the 3x3-cell raw candidate indices.
+    Returns (idx_raw (n_fluid, 9K) int64 with sentinel n_total,
+    cell_overflow). The per-cell counts use ``scatter_add`` with a known
+    length, which unlike ``bincount`` needs no device sync; the scatter
+    into the occupancy table writes past-capacity particles to one spare
+    row that is sliced off (the JAX scatter's ``mode="drop"``)."""
+    n = spec.n_total
+    dev = x.device
+    cx, cy = _cell_coords(spec, x, y)
+    cid = cy.to(torch.int64) * spec.nx + cx.to(torch.int64)
+
+    order = torch.argsort(cid, stable=True)
+    cid_sorted = cid[order]
+    counts = torch.zeros(spec.n_cells, dtype=torch.int64, device=dev)
+    counts.scatter_add_(0, cid, torch.ones_like(cid))
+    starts = torch.cumsum(counts, 0) - counts
+    rank = torch.arange(n, dtype=torch.int64, device=dev) - starts[cid_sorted]
+    cell_overflow = torch.max(counts) > spec.K
+
+    n_slots = spec.n_cells * spec.K
+    slot = torch.where(rank < spec.K, cid_sorted * spec.K + rank,
+                       torch.full_like(rank, n_slots))
+    table = torch.full((n_slots + 1,), n, dtype=torch.int64, device=dev)
+    table[slot] = order
+    table = table[:n_slots].reshape(spec.n_cells, spec.K)
+
+    cxf = cx[: spec.n_fluid].to(torch.int64)
+    cyf = cy[: spec.n_fluid].to(torch.int64)
+    blocks = []
+    for oy in (-1, 0, 1):
+        cyn = cyf + oy
+        y_ok = (cyn >= 0) & (cyn < spec.ny)
+        cyn_c = torch.clamp(cyn, 0, spec.ny - 1)
+        for ox in spec.x_offsets:
+            cxn = torch.remainder(cxf + ox, spec.nx)
+            cand = table[cyn_c * spec.nx + cxn]           # (n_fluid, K)
+            blocks.append(torch.where(y_ok[:, None], cand,
+                                      torch.full_like(cand, n)))
+    return torch.cat(blocks, dim=1), cell_overflow
+
+
+def build_candidates(spec: GridSpec, x, y, mass, wall_vx, wall_vy
+                     ) -> Candidates:
+    """Full candidate rebuild: raw 3x3 gather -> cutoff filter ->
+    compaction to C entries -> packed static gather."""
+    n = spec.n_total
+    nf = spec.n_fluid
+    idx_raw, cell_overflow = _raw_candidates(spec, x, y)
+    jraw = torch.clamp(idx_raw, max=n - 1)
+
+    xi = x[:nf][:, None]
+    yi = y[:nf][:, None]
+    xj, yj = gather_pack(jraw, (x, y))
+    dx = xi - xj
+    dx = dx - spec.DL * torch.round(dx / spec.DL)
+    dy = yi - yj
+    r2 = dx * dx + dy * dy
+    self_row = torch.arange(nf, dtype=torch.int64, device=x.device)[:, None]
+    valid = ((idx_raw < n) & (jraw != self_row)
+             & (r2 < spec.cand_cutoff * spec.cand_cutoff) & (r2 > 1e-24))
+
+    # compaction: stable-sort valid entries to the front, keep C columns
+    # (an integer key: the stable order of a bool sort is not promised on
+    # every device)
+    n_valid = torch.sum(valid, dim=1)
+    compaction_overflow = torch.max(n_valid) > spec.C
+    perm = torch.argsort((~valid).to(torch.uint8), dim=1,
+                         stable=True)[:, : spec.C]
+    idx_c = torch.gather(idx_raw, 1, perm)
+    cvalid_b = torch.gather(valid, 1, perm)
+    jsafe = torch.clamp(idx_c, max=n - 1)
+
+    mass_j, wvx_j, wvy_j, yj_c = gather_pack(jsafe,
+                                             (mass, wall_vx, wall_vy, y))
+    fdtype = x.dtype
+    cvalid = cvalid_b.to(fdtype)
+    is_wall_j = cvalid * (jsafe >= nf).to(fdtype)
+    return Candidates(
+        jsafe=jsafe, cvalid=cvalid,
+        is_fluid_j=cvalid * (jsafe < nf).to(fdtype),
+        mass_j=mass_j, wvx_j=wvx_j, wvy_j=wvy_j,
+        wall_bot=is_wall_j * (yj_c <= 0.0).to(fdtype),
+        wall_top=is_wall_j * (yj_c >= spec.DH).to(fdtype),
+        ref_x=x, ref_y=y,
+        overflow=cell_overflow | compaction_overflow,
+    )
+
+
+def compute_geometry(spec: GridSpec, cands: Candidates, x, y, vol
+                     ) -> Geometry:
+    """Per-step geometry over the compacted candidates, masked to the exact
+    cutoff r < 2h. One packed gather ([x, y, vol])."""
+    xj, yj, vol_j = gather_pack(cands.jsafe, (x, y, vol))
+    xi = x[: spec.n_fluid][:, None]
+    yi = y[: spec.n_fluid][:, None]
+    dx = xi - xj
+    # minimum-image along the x-periodic axis
+    # (sph_neighbor_search_mex.c:359-363)
+    dx = dx - spec.DL * torch.round(dx / spec.DL)
+    dy = yi - yj
+    r2 = dx * dx + dy * dy
+    valid = ((cands.cvalid > 0) & (r2 < spec.cutoff * spec.cutoff)
+             & (r2 > 1e-24))
+
+    r = torch.sqrt(torch.where(valid, r2, torch.ones_like(r2)))
+    w, dw = cubic_spline(r, spec.h)
+    fvalid = valid.to(x.dtype)
+    w = w * fvalid
+    dw = dw * fvalid
+    inv_r = 1.0 / r
+    return Geometry(
+        dx=dx * fvalid, dy=dy * fvalid, r=r,
+        ex=dx * inv_r * fvalid, ey=dy * inv_r * fvalid,
+        w=w, dw=dw,
+        mask_f=fvalid * cands.is_fluid_j,
+        mask_w=fvalid * (1.0 - cands.is_fluid_j) * cands.cvalid,
+        x_j=xj, y_j=yj, vol_j=vol_j,
+    )
+
+
+def displacement_exceeded(spec: GridSpec, cands: Candidates, x, y):
+    """Skin guard: True (0-dim bool) when some particle moved more than
+    skin/2 since the candidate rebuild (the candidate set may have lost a
+    true pair)."""
+    if spec.skin <= 0.0:
+        return torch.zeros((), dtype=torch.bool, device=x.device)
+    ddx = x - cands.ref_x
+    ddx = ddx - spec.DL * torch.round(ddx / spec.DL)
+    ddy = y - cands.ref_y
+    return torch.max(ddx * ddx + ddy * ddy) > (0.5 * spec.skin) ** 2
+
+
+def count_pairs(geom: Geometry):
+    """Reference-convention pair count (fluid-fluid stored once + all
+    fluid-wall pairs), for log parity with SPH_Poiseuille.m:287-288."""
+    n_ff_directed = torch.sum(geom.mask_f)
+    n_fw = torch.sum(geom.mask_w)
+    return (n_ff_directed / 2 + n_fw).to(torch.int32)

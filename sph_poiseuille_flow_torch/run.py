@@ -50,10 +50,11 @@ def main(argv=None) -> int:
                         choices=["auto", "cellgrid", "pallas", "gather"],
                         help="pallas: the fused cell-layout engine (its "
                              "CUDA kernels are float32); cellgrid: the "
-                             "cell-layout engine of plain torch ops "
-                             "(float32 or float64 on either device); auto: "
-                             "pallas for float32, cellgrid for float64; "
-                             "gather is not ported yet and raises")
+                             "cell-layout engine of plain torch ops; "
+                             "gather: the packed-gather engine of plain "
+                             "torch ops (both float32 or float64 on either "
+                             "device); auto: pallas for float32, cellgrid "
+                             "for float64")
     parser.add_argument("--dtype", default="float32",
                         choices=["float32", "float64"],
                         help="state dtype; float64 runs through the "

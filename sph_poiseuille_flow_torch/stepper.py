@@ -30,6 +30,14 @@ or float64 on any device: the engine of float64 runs. Its interval loop is
 a Python loop with one host sync per step (dt for the Kahan clock and the
 drift flag that decides an early rebuild).
 
+``Engine`` is the JAX package's packed-gather engine (stepper.py:173-393)
+in plain torch ops: dense ``(n_fluid, C)`` neighbor rows
+(``ops/neighbors.py``) and the row-math operators of ``ops/density.py``,
+``viscosity.py``, ``transport.py``, ``integration.py`` and
+``monitors.py``, with four packed gathers a step. It runs in float32 or
+float64 on any device, with ``CellEngine``'s interval loop (one host sync
+a step).
+
 State lives as a ``NamedTuple`` of 1-D tensors on one explicit device.
 """
 
@@ -47,11 +55,14 @@ from .models.poiseuille import Scene
 from .ops import cellgrid as cg
 from .ops import fused_cell as pc
 from .ops import neighbors as nbr
-from .ops.integration import periodic_wrap, verlet_dt
-
-ROADMAP_ITEM = {
-    "gather": "ROADMAP.md queue 1 item 4 (the gather engine)",
-}
+from .ops.density import density_sums, kernel_gradient_correction
+from .ops.integration import (continuity_rate, finalize_density, half_drift,
+                              half_kick_eos, kick, periodic_wrap,
+                              pressure_force, verlet_dt)
+from .ops.monitors import wall_shear
+from .ops.neighbors import gather_pack
+from .ops.transport import transport_correction
+from .ops.viscosity import viscous_force
 
 
 class State(NamedTuple):
@@ -86,8 +97,10 @@ class IntervalResult(NamedTuple):
     plain numbers."""
 
     state: State
-    cands: NamedTuple           # FusedLayout (fused), CellLayout (cellgrid)
-    geom: object                # pair count (fused), CellGeometry (cellgrid)
+    cands: NamedTuple           # FusedLayout (fused), CellLayout (cellgrid),
+    #                             Candidates (gather)
+    geom: object                # pair count (fused), CellGeometry
+    #                             (cellgrid), Geometry (gather)
     tau_bottom: torch.Tensor
     tau_top: torch.Tensor
     n_steps: int
@@ -146,16 +159,13 @@ def initial_state(cfg: SPHConfig, scene: Scene, device) -> State:
         b21=z.clone(), b22=torch.ones(n, dtype=dtype, device=device))
 
 
-class CellEngine:
-    """The cell-layout engine of plain torch ops (``ops/cellgrid.py``; the
-    JAX package's ``CellEngine``, stepper.py:395-594): every per-pair
-    access is a static slice of the padded cell grid; one packed scatter
-    and one packed collect per step touch particle order. It runs in
-    float32 or float64 on any device.
-
-    API as the fused engine's: ``init(state) -> (state, layout, geometry,
-    overflow)``, ``step`` and ``run_interval(state, layout, geometry,
-    interval_len, ...) -> IntervalResult``."""
+class _PerStepEngine:
+    """What the two per-step engines share (``CellEngine``, ``Engine``):
+    the set-up, the neighbor refresh decided on the host and the interval
+    loop, a Python loop with one host sync per step (JAX
+    ``Engine._run_interval`` and ``CellEngine._run_interval``,
+    stepper.py:302-393, :520-593). A subclass gives ``_rebuild``,
+    ``_drift_over``, ``_step``, ``final_shear`` and ``_count_pairs``."""
 
     def __init__(self, cfg: SPHConfig, scene: Scene, device):
         self.device = torch.device(device)
@@ -169,105 +179,48 @@ class CellEngine:
         self._wall_vx = torch.zeros(scene.n_total, dtype=dtype,
                                     device=self.device)
         self._wall_vy = torch.zeros_like(self._wall_vx)
-        self._wall_y = torch.as_tensor(scene.y, dtype=dtype,
-                                       device=self.device)
-
-    def _rebuild(self, x, y):
-        return cg.build_layout(self.spec, x, y, self._mass, self._wall_vx,
-                               self._wall_vy, self._wall_y)
 
     def _false(self):
         return torch.zeros((), dtype=torch.bool, device=self.device)
 
-    def _step(self, state: State, lay, geom, step_idx: int, remain, g, mu,
-              shear: bool):
-        """One step (JAX ``CellEngine._step``). Returns (state, layout,
-        geometry, dt, host dt, overflow, guard, tau_bottom, tau_top); tau
-        is None unless ``shear``. The one host sync reads dt and the
-        accumulated-drift flag together."""
-        cfg, spec = self.cfg, self.spec
-        nf = spec.n_fluid
-        dt = verlet_dt(state.vx[:nf], state.vy[:nf], cfg.c_f, cfg.h,
-                       mu / cfg.rho0, g, remain)
-        out = cg.cell_step(
-            spec, lay, geom, self._mass, state.x, state.y, state.vx,
-            state.vy, state.drho_dt, dt, cfg.rho0, cfg.p0, cfg.c_f,
-            cfg.inv_sigma0, cfg.transport_coeff, g, mu,
-            cfg.wall_visc_factor)
-        x = periodic_wrap(spec, out["x"])
-        y = out["y"]
+    def _refresh(self, lay, x0, y0, x, y, dt, step_idx: int):
+        """The neighbor refresh after a step: (layout, host dt, guard). The
+        one host sync of the step reads dt and the accumulated-drift flag
+        together; the rebuild the JAX loop takes under ``lax.cond`` is
+        decided here. Accumulated drift past the half skin rebuilds early
+        (self-healing); a single step's crossing is the unrecoverable
+        guard (stepper.py:235-264, :445-458)."""
+        cfg = self.cfg
         if cfg.rebuild_every <= 1:
-            dt_h = dt.item()
+            return self._rebuild(x, y), dt.item(), self._false()
+        drift_over = self._drift_over(lay, x, y)
+        dt_h, over = torch.stack([dt, drift_over.to(dt.dtype)]).tolist()
+        if step_idx % cfg.rebuild_every == 0 or over:
             lay = self._rebuild(x, y)
-            guard = self._false()
-        else:
-            # the self-healing cadence: accumulated drift past the half
-            # skin rebuilds early; a single step's crossing is the
-            # unrecoverable guard (stepper.py:445-458)
-            drift_over = cg.displacement_exceeded(spec, lay, x, y)
-            dt_h, over = torch.stack([dt, drift_over.to(dt.dtype)]).tolist()
-            if step_idx % cfg.rebuild_every == 0 or over:
-                lay = self._rebuild(x, y)
-            guard = nbr.step_displacement_exceeded(spec, state.x, state.y,
-                                                   x, y)
-        geom = cg.compute_geometry(spec, lay, x, y)
-        new_state = State(
-            x=x, y=y, vx=out["vx"], vy=out["vy"], rho=out["rho"],
-            p=out["p"], drho_dt=out["drho_dt"], fx=out["fx"], fy=out["fy"],
-            fpx=out["fpx"], fpy=out["fpy"], vol=out["vol"],
-            b11=out["b11"], b12=out["b12"], b21=out["b21"],
-            b22=out["b22"])
-        tau = (self.final_shear(new_state, lay, geom, mu) if shear
-               else (None, None))
-        return (new_state, lay, geom, dt, dt_h, lay.overflow, guard) + tau
+        guard = nbr.step_displacement_exceeded(self.spec, x0, y0, x, y)
+        return lay, dt_h, guard
 
     def step(self, state: State, lay, geom, step_idx: int = 0,
              remain=float("inf"), g=None, mu=None):
-        """One step with the wall shear on its post-rebuild layout: (state,
-        layout, geometry, dt, overflow, guard, tau_bottom, tau_top)."""
+        """One step with the wall shear on its post-rebuild neighbors:
+        (state, layout, geometry, dt, overflow, guard, tau_bottom,
+        tau_top)."""
         cfg = self.cfg
         g = cfg.gravity_g if g is None else g
         mu = cfg.mu if mu is None else mu
         r = self._step(state, lay, geom, step_idx, remain, g, mu, True)
         return r[:4] + r[5:]
 
-    def init(self, state: State):
-        """Initial layout + density/KGC/EOS pass (SPH_Poiseuille.m:165-173):
-        a zero-dt, zero-shift cell step whose kinematic outputs are
-        identities. ``drho_dt`` is kept (it carries across a restart into
-        the first half-kick)."""
-        cfg, spec = self.cfg, self.spec
-        lay = self._rebuild(state.x, state.y)
-        geom = cg.compute_geometry(spec, lay, state.x, state.y)
-        out = cg.cell_step(
-            spec, lay, geom, self._mass, state.x, state.y, state.vx,
-            state.vy, state.drho_dt,
-            torch.zeros((), dtype=self.dtype, device=self.device), cfg.rho0,
-            cfg.p0, cfg.c_f, cfg.inv_sigma0, 0.0, cfg.gravity_g, cfg.mu,
-            cfg.wall_visc_factor)
-        state = state._replace(
-            rho=out["rho"], p=out["p"], vol=out["vol"], b11=out["b11"],
-            b12=out["b12"], b21=out["b21"], b22=out["b22"])
-        return state, lay, geom, lay.overflow
-
-    def final_shear(self, state: State, lay, geom, mu):
-        """The wall shear of the loop's final carry, which equals the final
-        step's in-loop value (same post-rebuild layout and post-kick state,
-        SPH_Poiseuille.m:280-283)."""
-        return cg.cell_wall_shear(
-            self.spec, lay, geom, state.vx, state.vol, state.b11, state.b12,
-            state.b21, state.b22, mu, self.cfg.wall_visc_factor)
-
     def run_interval(self, state: State, lay, geom, interval_len,
                      g=None, mu=None, max_steps=None, t_local0=None,
                      t_comp0=None, sub_len0=None, t_base=None,
                      step_base=None, steps_done0=None) -> IntervalResult:
-        """Run to the next output point (JAX ``CellEngine._run_interval``).
-        ``max_steps``/``t_local0``/``t_comp0``/``steps_done0``: trajectory-
-        preserving step-bounded dispatch (``sub_len0`` is accepted and
-        ignored). The wall shear is observed only where it is read: every
-        step with the step log, else once from the final carry (the static
-        tau schedule, stepper.py:461-474)."""
+        """Run to the next output point. ``max_steps``/``t_local0``/
+        ``t_comp0``/``steps_done0``: trajectory-preserving step-bounded
+        dispatch (``sub_len0`` is accepted and ignored). The wall shear is
+        observed only where it is read: every step with the step log, else
+        once from the final carry, which equals the last step's in-loop
+        value (the same post-rebuild neighbors and post-kick state)."""
         del sub_len0
         cfg, spec = self.cfg, self.spec
         g = cfg.gravity_g if g is None else g
@@ -299,8 +252,8 @@ class CellEngine:
                 tau_b, tau_t = tb, tt
                 vmax = torch.sqrt(torch.max(state.vx[:nf] ** 2
                                             + state.vy[:nf] ** 2))
-                row = torch.stack([cg.count_pairs(lay, geom).to(self.dtype),
-                                   vmax, tau_b, tau_t]).tolist()
+                row = torch.stack([self._count_pairs(lay, geom).to(
+                    self.dtype), vmax, tau_b, tau_t]).tolist()
                 logn = _log_row_update(every, logbuf, logn,
                                        step_base + n_steps + 1,
                                        t_base + t_local, dt_h, *row)
@@ -309,13 +262,221 @@ class CellEngine:
             tau_b, tau_t = self.final_shear(state, lay, geom, mu)
         v_max = torch.sqrt(torch.max(state.vx[:nf] ** 2
                                      + state.vy[:nf] ** 2))
-        n_pairs = cg.count_pairs(lay, geom)
+        n_pairs = self._count_pairs(lay, geom)
         return IntervalResult(
             state=state, cands=lay, geom=geom, tau_bottom=tau_b,
             tau_top=tau_t, n_steps=n_steps, overflow=overflow,
             skin_guard=bool(guard), v_max=v_max, n_pairs=n_pairs,
             t_local=t_local, t_comp=t_comp, n_syncs=n_syncs + 1,
             step_log=logbuf, step_log_n=logn)
+
+
+class CellEngine(_PerStepEngine):
+    """The cell-layout engine of plain torch ops (``ops/cellgrid.py``; the
+    JAX package's ``CellEngine``, stepper.py:395-594): every per-pair
+    access is a static slice of the padded cell grid; one packed scatter
+    and one packed collect per step touch particle order. It runs in
+    float32 or float64 on any device.
+
+    API as the fused engine's: ``init(state) -> (state, layout, geometry,
+    overflow)``, ``step`` and ``run_interval(state, layout, geometry,
+    interval_len, ...) -> IntervalResult``."""
+
+    def __init__(self, cfg: SPHConfig, scene: Scene, device):
+        super().__init__(cfg, scene, device)
+        self._wall_y = torch.as_tensor(scene.y, dtype=self.dtype,
+                                       device=self.device)
+
+    def _rebuild(self, x, y):
+        return cg.build_layout(self.spec, x, y, self._mass, self._wall_vx,
+                               self._wall_vy, self._wall_y)
+
+    def _drift_over(self, lay, x, y):
+        return cg.displacement_exceeded(self.spec, lay, x, y)
+
+    def _count_pairs(self, lay, geom):
+        return cg.count_pairs(lay, geom)
+
+    def _step(self, state: State, lay, geom, step_idx: int, remain, g, mu,
+              shear: bool):
+        """One step (JAX ``CellEngine._step``). Returns (state, layout,
+        geometry, dt, host dt, overflow, guard, tau_bottom, tau_top); tau
+        is None unless ``shear``."""
+        cfg, spec = self.cfg, self.spec
+        nf = spec.n_fluid
+        dt = verlet_dt(state.vx[:nf], state.vy[:nf], cfg.c_f, cfg.h,
+                       mu / cfg.rho0, g, remain)
+        out = cg.cell_step(
+            spec, lay, geom, self._mass, state.x, state.y, state.vx,
+            state.vy, state.drho_dt, dt, cfg.rho0, cfg.p0, cfg.c_f,
+            cfg.inv_sigma0, cfg.transport_coeff, g, mu,
+            cfg.wall_visc_factor)
+        x = periodic_wrap(spec, out["x"])
+        y = out["y"]
+        lay, dt_h, guard = self._refresh(lay, state.x, state.y, x, y, dt,
+                                         step_idx)
+        geom = cg.compute_geometry(spec, lay, x, y)
+        new_state = State(
+            x=x, y=y, vx=out["vx"], vy=out["vy"], rho=out["rho"],
+            p=out["p"], drho_dt=out["drho_dt"], fx=out["fx"], fy=out["fy"],
+            fpx=out["fpx"], fpy=out["fpy"], vol=out["vol"],
+            b11=out["b11"], b12=out["b12"], b21=out["b21"],
+            b22=out["b22"])
+        tau = (self.final_shear(new_state, lay, geom, mu) if shear
+               else (None, None))
+        return (new_state, lay, geom, dt, dt_h, lay.overflow, guard) + tau
+
+    def init(self, state: State):
+        """Initial layout + density/KGC/EOS pass (SPH_Poiseuille.m:165-173):
+        a zero-dt, zero-shift cell step whose kinematic outputs are
+        identities. ``drho_dt`` is kept (it carries across a restart into
+        the first half-kick)."""
+        cfg, spec = self.cfg, self.spec
+        lay = self._rebuild(state.x, state.y)
+        geom = cg.compute_geometry(spec, lay, state.x, state.y)
+        out = cg.cell_step(
+            spec, lay, geom, self._mass, state.x, state.y, state.vx,
+            state.vy, state.drho_dt,
+            torch.zeros((), dtype=self.dtype, device=self.device), cfg.rho0,
+            cfg.p0, cfg.c_f, cfg.inv_sigma0, 0.0, cfg.gravity_g, cfg.mu,
+            cfg.wall_visc_factor)
+        state = state._replace(
+            rho=out["rho"], p=out["p"], vol=out["vol"], b11=out["b11"],
+            b12=out["b12"], b21=out["b21"], b22=out["b22"])
+        return state, lay, geom, lay.overflow
+
+    def final_shear(self, state: State, lay, geom, mu):
+        """The wall shear of the loop's final carry, which equals the final
+        step's in-loop value (same post-rebuild layout and post-kick state,
+        SPH_Poiseuille.m:280-283)."""
+        return cg.cell_wall_shear(
+            self.spec, lay, geom, state.vx, state.vol, state.b11, state.b12,
+            state.b21, state.b22, mu, self.cfg.wall_visc_factor)
+
+
+class Engine(_PerStepEngine):
+    """The packed-gather engine of plain torch ops (the JAX package's
+    ``Engine``, stepper.py:173-393): every physics operator is row math
+    over the compacted ``(n_fluid, C)`` candidate rows, and all
+    neighbor-side values flow through four packed gathers a step:
+
+      A [vol] -> B [B(4), v(2), rho_half, p_half] -> C [v_new(2)]
+      -> D [x, y, vol] (the next step's geometry)
+
+    Operator order is the reference's (SPH_Poiseuille.m:254-283):
+    density -> KGC -> viscous(+gravity) -> shifting -> Verlet (stage-1
+    force, kick, stage 2, finalize) -> wrap -> candidate refresh ->
+    geometry; the Verlet step integrates on the pre-shift geometry, as
+    the reference does. It runs in float32 or float64 on any device and
+    launches none of the port's kernels.
+
+    API as ``CellEngine``'s: ``init(state) -> (state, candidates,
+    geometry, overflow)``, ``step`` and ``run_interval(state, candidates,
+    geometry, interval_len, ...) -> IntervalResult``."""
+
+    def _rebuild(self, x, y):
+        return nbr.build_candidates(self.spec, x, y, self._mass,
+                                    self._wall_vx, self._wall_vy)
+
+    def _drift_over(self, cands, x, y):
+        return nbr.displacement_exceeded(self.spec, cands, x, y)
+
+    def _count_pairs(self, cands, geom):
+        return nbr.count_pairs(geom)
+
+    def _step(self, state: State, cands, geom, step_idx: int, remain, g,
+              mu, shear: bool):
+        """One step (JAX ``Engine._step``). Returns (state, candidates,
+        geometry, dt, host dt, overflow, guard, tau_bottom, tau_top); tau
+        is None unless ``shear``."""
+        cfg, spec = self.cfg, self.spec
+        nf = spec.n_fluid
+        js = cands.jsafe
+        mass = self._mass
+
+        # dt depends only on pre-step velocities (SPH_Poiseuille.m:259)
+        dt = verlet_dt(state.vx[:nf], state.vy[:nf], cfg.c_f, cfg.h,
+                       mu / cfg.rho0, g, remain)
+
+        # density reinit + stage-1 half-kick EOS
+        rho, vol = density_sums(spec, geom, cands, mass, cfg.rho0,
+                                cfg.inv_sigma0)
+        rho_half, p_half = half_kick_eos(spec, rho, state.drho_dt, dt,
+                                         cfg.rho0, cfg.p0)
+
+        (vol_j,) = gather_pack(js, (vol,))                     # gather A
+        b11, b12, b21, b22 = kernel_gradient_correction(spec, geom, vol_j)
+
+        (b11_j, b12_j, b21_j, b22_j, vx_j, vy_j, rho_half_j,
+         p_half_j) = gather_pack(js, (b11, b12, b21, b22, state.vx,
+                                      state.vy, rho_half, p_half))  # B
+
+        fpx, fpy = viscous_force(
+            spec, geom, cands, state.vx, state.vy, vol, b11, b12, b21, b22,
+            vol_j, b11_j, b12_j, b21_j, b22_j, vx_j, vy_j, mu, cfg.h,
+            cfg.wall_visc_factor)
+        fpx = torch.cat([fpx[:nf] + mass[:nf] * g, fpx[nf:]])
+
+        x, y = transport_correction(
+            spec, geom, state.x, state.y, b11, b12, b21, b22,
+            vol_j, b11_j, b12_j, b21_j, b22_j, cfg.h, cfg.transport_coeff)
+
+        # verlet: stage 1 force, kick, stage 2, finalize
+        x, y = half_drift(spec, x, y, state.vx, state.vy, dt)
+        fx, fy, _ = pressure_force(
+            spec, geom, cands, rho_half, p_half, mass, state.vx,
+            state.vy, fpx, fpy, vol, b11, b12, b21, b22,
+            vol_j, b11_j, b12_j, b21_j, b22_j, vx_j, vy_j,
+            rho_half_j, p_half_j, cfg.rho0, cfg.c_f)
+        vx2, vy2 = kick(spec, state.vx, state.vy, fpx, fpy, fx, fy, mass,
+                        dt)
+        x, y = half_drift(spec, x, y, vx2, vy2, dt)
+        vx2_j, vy2_j = gather_pack(js, (vx2, vy2))             # gather C
+        drho_dt = continuity_rate(spec, geom, cands, rho_half, vx2, vy2,
+                                  vol_j, vx2_j, vy2_j)
+        rho, p = finalize_density(spec, rho_half, drho_dt, dt, cfg.rho0,
+                                  cfg.p0)
+        x = periodic_wrap(spec, x)
+
+        # candidates every `rebuild_every` steps or on accumulated drift,
+        # geometry every step (gather D)
+        cands, dt_h, guard = self._refresh(cands, state.x, state.y, x, y,
+                                           dt, step_idx)
+        geom = nbr.compute_geometry(spec, cands, x, y, vol)
+        new_state = State(x=x, y=y, vx=vx2, vy=vy2, rho=rho, p=p,
+                          drho_dt=drho_dt, fx=fx, fy=fy, fpx=fpx, fpy=fpy,
+                          vol=vol, b11=b11, b12=b12, b21=b21, b22=b22)
+        tau = (self.final_shear(new_state, cands, geom, mu) if shear
+               else (None, None))
+        return (new_state, cands, geom, dt, dt_h, cands.overflow,
+                guard) + tau
+
+    def init(self, state: State):
+        """Initial candidate build + density/KGC pass
+        (SPH_Poiseuille.m:165-173; JAX ``Engine._init``). ``drho_dt`` is
+        kept (it carries across a restart into the first half-kick)."""
+        cfg, spec = self.cfg, self.spec
+        nf = spec.n_fluid
+        cands = self._rebuild(state.x, state.y)
+        geom = nbr.compute_geometry(spec, cands, state.x, state.y,
+                                    state.vol)
+        rho, vol = density_sums(spec, geom, cands, self._mass, cfg.rho0,
+                                cfg.inv_sigma0)
+        (vol_j,) = gather_pack(cands.jsafe, (vol,))
+        b11, b12, b21, b22 = kernel_gradient_correction(spec, geom, vol_j)
+        p_f = cfg.p0 * (rho[:nf] / cfg.rho0 - 1.0)
+        p = torch.cat([p_f, p_f.new_zeros((spec.n_total - nf,))])
+        state = state._replace(rho=rho, p=p, vol=vol, b11=b11, b12=b12,
+                               b21=b21, b22=b22)
+        return state, cands, geom, cands.overflow
+
+    def final_shear(self, state: State, cands, geom, mu):
+        """The wall shear of the carry (SPH_Poiseuille.m:280-283), on its
+        post-rebuild candidates and the geometry's gathered volumes."""
+        cfg = self.cfg
+        return wall_shear(self.spec, geom, cands, state.vx, state.vol,
+                          state.b11, state.b12, state.b21, state.b22,
+                          cfg.DL, mu, cfg.h, cfg.wall_visc_factor)
 
 
 class PallasCellEngine:
@@ -659,16 +820,12 @@ def resolve_engine_name(cfg: SPHConfig, scene: Scene = None) -> str:
     cell-layout engine in float64 (the fused kernels are float32, as the
     JAX package's Pallas kernels are; its "auto" sends float64 to
     "cellgrid" too). Unlike the JAX package, "auto" keeps the fused engine
-    off the accelerator: its plain twins are the CPU path. "gather"
-    raises."""
+    off the accelerator: its plain twins are the CPU path. "gather" is the
+    packed-gather engine, which "auto" never picks."""
     if cfg.engine == "auto":
         return "cellgrid" if cfg.dtype == "float64" else "pallas"
-    if cfg.engine in ("pallas", "cellgrid"):
+    if cfg.engine in ("pallas", "cellgrid", "gather"):
         return cfg.engine
-    if cfg.engine == "gather":
-        raise NotImplementedError(
-            f"engine {cfg.engine!r} is not ported: "
-            + ROADMAP_ITEM[cfg.engine])
     raise ValueError(f"unknown engine {cfg.engine!r}")
 
 
@@ -679,4 +836,6 @@ def make_engine(cfg: SPHConfig, scene: Scene, device):
         cfg = dataclasses.replace(cfg, engine=name)
     if name == "cellgrid":
         return CellEngine(cfg, scene, device)
+    if name == "gather":
+        return Engine(cfg, scene, device)
     return PallasCellEngine(cfg, scene, device)

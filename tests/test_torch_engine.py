@@ -206,13 +206,6 @@ def test_engine_names_give_the_fused_engine(engine):
     assert eng.cfg.engine == "pallas"
 
 
-@pytest.mark.parametrize("engine", ["gather"])
-def test_unported_engines_raise(engine):
-    cfg = port_cfg(default_cfg(), engine=engine)
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        make_engine(cfg, build_scene(cfg), "cpu")
-
-
 def test_step_log_raises():
     """step_log_every > 0 no longer raises: the interval runs step by step
     and returns a row every 5 steps, numbered from ``step_base``."""
