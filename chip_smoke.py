@@ -92,6 +92,17 @@ Phases, each of which exits non-zero on failure before the last line:
    printed on a line of its own; it fails on a dirty flag or a malformed
    line. (The three-scale ``python3 bench_torch.py`` is not repeated
    here.)
+6. the (g, mu) sweep (``parallel.run_sweep``): (i) through the CLI
+   (``--sweep-mus``) at dp=0.01 with the shipping knobs, the eight lanes of
+   docs/VALIDATION.md's sweep for 0.1 s: every lane finite with v_max
+   rising, the fused kernels of the form "auto" picks launched and no
+   other, and lanes 2 (mu = 0.1, the config's) and 6 (mu = 0.25, its
+   single run built from ``_lane_cfg``) bit-equal to a single
+   ``PallasCellEngine`` run on the card from the same init; (ii) the
+   lane-batched path, ``config.ini`` in float64 on ``CellEngine``, four
+   lanes for 0.05 s, each within 1e-10 of its own single run, with the ms
+   per lane-step of one lane alone and of the four. Its launches count in
+   the kernels line.
 
 Prints the card's name and power limit, a ``{"kernels": [...]}`` line
 (each kernel with its time, its plain version's and the least time the
@@ -1219,6 +1230,159 @@ def phase_bench() -> dict:
     return out
 
 
+# phase 6: the full eight lanes of docs/VALIDATION.md's dp=0.01 sweep,
+# and the lanes the batched path holds against single runs
+SWEEP_MUS = (0.05, 0.075, 0.1, 0.125, 0.15, 0.2, 0.25, 0.3)
+SWEEP_EQUAL = (2, 6)   # mu = 0.1 (config's) and 0.25
+BATCH_MUS = (0.05, 0.1, 0.2, 0.3)
+
+
+def phase_sweep(device) -> dict:
+    """(i) The fused sweep through the CLI at dp=0.01 with the shipping
+    knobs, eight lanes for 0.1 s: every lane finite with v_max rising (the
+    sweep raises on a dirty flag), the run's kernels launched and no other
+    form, and lanes 2 and 6 bit-equal to a single ``PallasCellEngine`` run
+    from the same init (lane 6's from ``_lane_cfg``). (ii) The batched
+    cellgrid path on config.ini in float64, four lanes for 0.05 s: each
+    lane within 1e-10 of its own single run on the card, and the ms per
+    lane-step of one lane alone and of the four."""
+    import math
+    import numpy as np
+    import torch
+    from sph_poiseuille_flow_torch import parallel
+    from sph_poiseuille_flow_torch import run as cli
+    from sph_poiseuille_flow_torch.config import load_config
+    from sph_poiseuille_flow_torch.models.poiseuille import build_scene
+    from sph_poiseuille_flow_torch.ops import fused_cell_cuda as fcc
+    from sph_poiseuille_flow_torch.parallel.sweep import _lane_cfg
+    from sph_poiseuille_flow_torch.stepper import initial_state, make_engine
+
+    def single(cfg, g=None, mu=None):
+        scene = build_scene(cfg)
+        eng = make_engine(cfg, scene, device)
+        s, lay, geom, ovf = eng.init(initial_state(cfg, scene, device))
+        t = 0.0
+        while t < cfg.end_time - 1e-9:
+            target = min(t + cfg.output_interval, cfg.end_time)
+            r = eng.run_interval(s, lay, geom,
+                                 np.dtype(cfg.dtype).type(target - t), g, mu)
+            if bool(ovf) or bool(r.overflow) or r.skin_guard:
+                raise AssertionError("sweep: a single run's flags not clean")
+            s, lay, geom = r.state, r.cands, r.geom
+            t = target
+        return s
+
+    # (i) the fused sweep, eight lanes, through the CLI
+    t0 = time.perf_counter()
+    base = os.path.join(OUT, "sweep_dp001")
+    os.makedirs(base, exist_ok=True)
+    ini = os.path.join(base, "config.ini")
+    with open(ini, "w") as f:
+        f.write("[physical]\nDL = 3.0\nDH = 1.0\ndp = 0.01\nrho0 = 1.0\n"
+                "mu = 0.1\nU_bulk = 0.666667\nc_f = 15.0\n[simulation]\n"
+                "end_time = 0.1\noutput_interval = 0.05\n"
+                "sort_interval = 100\nrestart_from_file = 0\n")
+    seen = {}
+    orig = parallel.run_sweep
+
+    def keep(cfg, gs, mus, **kw):
+        seen.update(cfg=cfg, gs=gs, mus=mus, out=orig(cfg, gs, mus, **kw))
+        return seen["out"]
+
+    parallel.run_sweep = keep
+    buf = io.StringIO()
+    fcc.reset_launch_counts()
+    try:
+        with contextlib.redirect_stdout(buf):
+            rc = cli.main(["--config", ini, "--base-dir", base, "--device",
+                           "cuda", "--neighbor-skin",
+                           str(DP001["neighbor_skin"]), "--rebuild-every",
+                           "128", "--cell-capacity", "14", "--lane-pack-nx",
+                           "100", "--sweep-mus",
+                           ",".join(str(m) for m in SWEEP_MUS)])
+        torch.cuda.synchronize()
+    finally:
+        parallel.run_sweep = orig
+    counts = dict(fcc.LAUNCHES)
+    wall = time.perf_counter() - t0
+    text = buf.getvalue()
+    out = seen["out"]
+    pat = re.compile(r"  lane (\d+) output point t=[\d.]+: steps=(\d+), "
+                     r"vmax=([\d.]+)$")
+    vmax = {}
+    for ln in text.splitlines():
+        m = pat.match(ln)
+        if m:
+            vmax.setdefault(int(m.group(1)), []).append(float(m.group(3)))
+    for ln in text.splitlines():
+        if ln.startswith(("workload", "throughput", "  lane done")):
+            _say(f"  {ln}")
+    _say(f"sweep (i) fused dp=0.01, {len(SWEEP_MUS)} lanes x 0.1 s: "
+         f"rc={rc} lane-steps={out['total_lane_steps']} "
+         f"wall={out['wall_time']:.2f} s (phase {wall:.1f} s) "
+         f"psteps/s={out['particle_steps_per_sec']:.4e} launches={counts}")
+    st = out["final_states"]
+    if st.x.shape[0] != len(SWEEP_MUS) or not all(
+            np.isfinite(getattr(st, f)).all() for f in st._fields):
+        raise AssertionError("sweep (i): lanes missing or not finite")
+    for k in range(len(SWEEP_MUS)):
+        v = vmax.get(k, [])
+        if len(v) != 2 or not 0 < v[0] < v[1]:
+            raise AssertionError(f"sweep (i) lane {k}: v_max not rising: {v}")
+    _launched("sweep", counts, {"fused_step_cache", "fused_chunk_cache",
+                                "fused_wall_shear"})
+    cfg, gs, mus = seen["cfg"], seen["gs"], seen["mus"]
+    for k in SWEEP_EQUAL:
+        # the config's own workload runs from the config as a user gives
+        # it, every other from the lane's config
+        ref = single(cfg if mus[k] == cfg.mu else
+                     _lane_cfg(cfg, gs[k], mus[k]))
+        for f in ref._fields:
+            if not np.array_equal(getattr(st, f)[k],
+                                  getattr(ref, f).cpu().numpy()):
+                raise AssertionError(f"sweep (i) lane {k} (mu={mus[k]}): "
+                                     f"{f} differs from its single run")
+        _say(f"sweep (i) lane {k} (mu={mus[k]:g}) equals a single "
+             "PallasCellEngine run bit for bit")
+
+    # (ii) the batched cellgrid path, float64, four lanes
+    cfg = load_config(os.path.join(ROOT, "config.ini"), engine="cellgrid",
+                      dtype="float64", ini_overrides={"simulation": dict(
+                          end_time=0.05, output_interval=0.05)})
+    gs, mus = parallel.make_workloads(cfg, BATCH_MUS)
+    one = parallel.run_sweep(cfg, gs[:1], mus[:1], log=lambda _: None,
+                             device=device)
+    four = parallel.run_sweep(cfg, gs, mus, log=lambda _: None,
+                              device=device)
+    ms = {n: 1e3 * r["wall_time"] / r["total_lane_steps"]
+          for n, r in ((1, one), (4, four))}
+    worst = 0.0
+    for k in range(len(BATCH_MUS)):
+        ref = single(cfg, float(gs[k]), float(mus[k]))
+        for f in ref._fields:
+            a = getattr(ref, f).cpu().numpy()
+            scale = max(1.0, float(np.abs(a).max()))
+            rel = float(np.abs(getattr(four["final_states"], f)[k]
+                               - a).max()) / scale
+            worst = max(worst, rel)
+            if not rel <= 1e-10:
+                raise AssertionError(f"sweep (ii) lane {k}: {f} off its "
+                                     f"single run by {rel:.2e}")
+    _say(f"sweep (ii) cellgrid float64 config.ini, {len(BATCH_MUS)} lanes x "
+         f"0.05 s: lane-steps={four['total_lane_steps']}, worst lane vs "
+         f"single {worst:.2e} (bound 1e-10); ms per lane-step: 1 lane "
+         f"{ms[1]:.4f}, {len(BATCH_MUS)} lanes {ms[4]:.4f}")
+    if not all(math.isfinite(v) for v in ms.values()):
+        raise AssertionError(f"sweep (ii): times {ms}")
+    _say(f"sweep phase done in {time.perf_counter() - t0:.1f} s")
+    return dict(counts=counts, rc=rc,
+                l2=[float(v) for v in out["l2_errors"]],
+                lane_steps=out["total_lane_steps"],
+                wall=out["wall_time"],
+                psteps=out["particle_steps_per_sec"], worst64=worst,
+                ms_per_lane_step={str(n): v for n, v in ms.items()})
+
+
 def _time(fn, reps: int) -> float:
     import torch
     fn()
@@ -1511,6 +1675,8 @@ def main() -> int:
         cell = phase_cellgrid(device)
         timing = phase_timing(device, kern["b"])
         bench = phase_bench()
+        sweep = phase_sweep(device)
+        main_res["counts"]["sweep"] = sweep["counts"]
         _say(f"all phases done in {time.perf_counter() - t0:.1f} s")
     except Exception:
         traceback.print_exc()
@@ -1547,6 +1713,8 @@ def main() -> int:
                                  for (g, n), v in timing.items()}}))
     print(json.dumps({"cellgrid": cell}))
     print(json.dumps({"bench": bench}))
+    print(json.dumps({"sweep": {k: v for k, v in sweep.items()
+                                if k != "counts"}}))
     for run, r in main_res["runs"].items():
         print(json.dumps({"run": run, "L2_error": r["L2_error"],
                           "steps": r["step"], "t": r["t"],

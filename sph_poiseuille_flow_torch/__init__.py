@@ -10,7 +10,8 @@ and as their plain PyTorch twins on CPU tensors. ``python -m
 sph_poiseuille_flow_torch.probe`` times the step sweep by sweep through the
 probes' kernels (``ops/probes.py``). The cell-layout engine
 (``CellEngine``) and the packed-gather engine (``Engine``) are plain torch
-ops, float32 or float64 on either device.
+ops, float32 or float64 on either device. ``parallel.run_sweep`` runs
+(g, mu) workload sweeps on any of the three.
 """
 
 from .config import (SPHConfig, ConfigError, parse_ini, parse_ini_text,

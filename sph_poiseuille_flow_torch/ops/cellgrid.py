@@ -62,22 +62,23 @@ def assign_slots(spec: GridSpec, x: torch.Tensor, y: torch.Tensor):
     particle past the cell capacity; overflow is a 0-dim bool tensor (the
     reference's linked-cell insert, sph_neighbor_search_mex.c:69-113, as a
     static-shape scatter). The per-cell counts use ``scatter_add`` with a
-    known length, which unlike ``bincount`` needs no device sync."""
+    known length, which unlike ``bincount`` needs no device sync. Every
+    write is out of place, so the function maps over a lane axis
+    (``torch.func.vmap``, the batched sweep)."""
     n = spec.n_total
     dev = x.device
     cx, cy = _cell_coords(spec, x, y)
     cid = cy.to(torch.int64) * spec.nx + cx.to(torch.int64)
     order = torch.argsort(cid, stable=True)
     cid_sorted = cid[order]
-    counts = torch.zeros(spec.n_cells, dtype=torch.int64, device=dev)
-    counts.scatter_add_(0, cid, torch.ones_like(cid))
+    counts = torch.zeros(spec.n_cells, dtype=torch.int64,
+                         device=dev).scatter_add(0, cid, torch.ones_like(cid))
     starts = torch.cumsum(counts, 0) - counts
     rank = torch.arange(n, dtype=torch.int64, device=dev) - starts[cid_sorted]
     overflow = torch.max(counts) > spec.K
     slot_sorted = torch.where(rank < spec.K, cid_sorted * spec.K + rank,
                               torch.full_like(rank, spec.n_cells * spec.K))
-    slot = torch.empty_like(slot_sorted)
-    slot[order] = slot_sorted
+    slot = torch.empty_like(slot_sorted).scatter(0, order, slot_sorted)
     return slot, overflow
 
 
@@ -90,8 +91,7 @@ def _core(spec: GridSpec, slot, arrays: Sequence[torch.Tensor], fill=0.0,
         pack = pack.to(dtype)
     n_slots = spec.n_cells * spec.K
     flat = torch.full((n_slots + 1, pack.shape[1]), fill, dtype=pack.dtype,
-                      device=pack.device)
-    flat[slot] = pack
+                      device=pack.device).index_put((slot,), pack)
     return flat[:n_slots].reshape(spec.ny, spec.nx, -1)
 
 

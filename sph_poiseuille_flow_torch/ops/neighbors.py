@@ -301,7 +301,9 @@ def _raw_candidates(spec: GridSpec, x, y):
     cell_overflow). The per-cell counts use ``scatter_add`` with a known
     length, which unlike ``bincount`` needs no device sync; the scatter
     into the occupancy table writes past-capacity particles to one spare
-    row that is sliced off (the JAX scatter's ``mode="drop"``)."""
+    row that is sliced off (the JAX scatter's ``mode="drop"``). Every
+    write is out of place, so the function maps over a lane axis
+    (``torch.func.vmap``, the batched sweep)."""
     n = spec.n_total
     dev = x.device
     cx, cy = _cell_coords(spec, x, y)
@@ -309,8 +311,8 @@ def _raw_candidates(spec: GridSpec, x, y):
 
     order = torch.argsort(cid, stable=True)
     cid_sorted = cid[order]
-    counts = torch.zeros(spec.n_cells, dtype=torch.int64, device=dev)
-    counts.scatter_add_(0, cid, torch.ones_like(cid))
+    counts = torch.zeros(spec.n_cells, dtype=torch.int64,
+                         device=dev).scatter_add(0, cid, torch.ones_like(cid))
     starts = torch.cumsum(counts, 0) - counts
     rank = torch.arange(n, dtype=torch.int64, device=dev) - starts[cid_sorted]
     cell_overflow = torch.max(counts) > spec.K
@@ -318,8 +320,8 @@ def _raw_candidates(spec: GridSpec, x, y):
     n_slots = spec.n_cells * spec.K
     slot = torch.where(rank < spec.K, cid_sorted * spec.K + rank,
                        torch.full_like(rank, n_slots))
-    table = torch.full((n_slots + 1,), n, dtype=torch.int64, device=dev)
-    table[slot] = order
+    table = torch.full((n_slots + 1,), n, dtype=torch.int64,
+                       device=dev).index_put((slot,), order)
     table = table[:n_slots].reshape(spec.n_cells, spec.K)
 
     cxf = cx[: spec.n_fluid].to(torch.int64)

@@ -125,19 +125,20 @@ def main(argv=None) -> int:
                         help="override a config.ini value, e.g. "
                              "--set physical.dp=0.025 (repeatable)")
     parser.add_argument("--sweep-mus", metavar="MU1,MU2,...", default=None,
-                        help="not yet ported (raises)")
+                        help="run a (g, mu) sweep: one workload per mu, g "
+                             "scaled to keep U_bulk (per-lane L2 lines; "
+                             "exit 0 only if every lane passes)")
     parser.add_argument("--sweep-lane-chunk", type=int, default=None,
-                        help="not yet ported (raises; see --sweep-mus)")
+                        help="max sweep lanes resident at once on the "
+                             "cellgrid and gather engines (default: all); "
+                             "ignored on the fused engine, whose lanes run "
+                             "one at a time")
     parser.add_argument("--mesh", type=int, default=None, metavar="N",
                         help="not yet ported (raises)")
     args = parser.parse_args(argv)
 
     if args.mesh is not None:
         _not_ported("--mesh", "ROADMAP.md queue 1 item 6")
-    if args.sweep_mus:
-        _not_ported("--sweep-mus", "ROADMAP.md queue 1 item 5")
-    if args.sweep_lane_chunk is not None:
-        _not_ported("--sweep-lane-chunk", "ROADMAP.md queue 1 item 5")
 
     if args.postprocess_only:
         from .utils.postprocess import postprocess_file
@@ -177,6 +178,19 @@ def main(argv=None) -> int:
         parser.error(str(e))
 
     paths = SimulationPaths.from_env(args.base_dir)
+    if args.sweep_mus:
+        from .parallel import make_workloads, run_sweep
+        mus = [float(v) for v in args.sweep_mus.split(",") if v.strip()]
+        gs, mus = make_workloads(cfg, mus)
+        out = run_sweep(cfg, gs, mus, lane_chunk=args.sweep_lane_chunk,
+                        paths=paths, device=args.device)
+        for k, (mu_k, l2_k) in enumerate(zip(mus, out["l2_errors"])):
+            print(f"workload {k}: mu={mu_k:g} L2={100 * l2_k:.3f}%"
+                  f" {'PASS' if l2_k < 0.05 else 'FAIL'}")
+        print(f"throughput: {out['particle_steps_per_sec']:.3e} "
+              f"particle-steps/sec (sum over lanes)")
+        return 0 if bool((out["l2_errors"] < 0.05).all()) else 1
+
     if args.profile:
         from .utils.profile import traced
         capture = traced(args.profile, torch.device(args.device))

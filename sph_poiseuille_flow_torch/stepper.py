@@ -38,6 +38,10 @@ in plain torch ops: dense ``(n_fluid, C)`` neighbor rows
 float64 on any device, with ``CellEngine``'s interval loop (one host sync
 a step).
 
+Both per-step engines also run a chunk of (g, mu) sweep lanes in lockstep
+(``run_lanes``, for ``parallel/sweep.py``): the step mapped over a leading
+lane axis with ``torch.func.vmap``, one host sync a batched step.
+
 State lives as a ``NamedTuple`` of 1-D tensors on one explicit device.
 """
 
@@ -159,13 +163,25 @@ def initial_state(cfg: SPHConfig, scene: Scene, device) -> State:
         b21=z.clone(), b22=torch.ones(n, dtype=dtype, device=device))
 
 
+def _lane_where(mask: torch.Tensor, a, b):
+    """Per lane, ``a`` where ``mask`` else ``b``, over NamedTuples of
+    tensors with a leading lane axis (``lax.cond`` and the frozen lanes of
+    a ``while_loop`` under ``jax.vmap``)."""
+    def sel(u, v):
+        return torch.where(mask.reshape((-1,) + (1,) * (u.dim() - 1)), u, v)
+    return type(a)(*(sel(u, v) for u, v in zip(a, b)))
+
+
 class _PerStepEngine:
     """What the two per-step engines share (``CellEngine``, ``Engine``):
     the set-up, the neighbor refresh decided on the host and the interval
     loop, a Python loop with one host sync per step (JAX
     ``Engine._run_interval`` and ``CellEngine._run_interval``,
-    stepper.py:302-393, :520-593). A subclass gives ``_rebuild``,
-    ``_drift_over``, ``_step``, ``final_shear`` and ``_count_pairs``."""
+    stepper.py:302-393, :520-593), and the same loop over a lane axis
+    (``run_lanes``, the JAX sweep's ``jax.vmap`` of the interval). A
+    subclass gives ``_advance`` (the step up to its wrapped positions),
+    ``_rebuild``, ``_drift_over``, ``_geometry``, ``final_shear`` and
+    ``_count_pairs``."""
 
     def __init__(self, cfg: SPHConfig, scene: Scene, device):
         self.device = torch.device(device)
@@ -179,6 +195,7 @@ class _PerStepEngine:
         self._wall_vx = torch.zeros(scene.n_total, dtype=dtype,
                                     device=self.device)
         self._wall_vy = torch.zeros_like(self._wall_vx)
+        self._lane_fns = None
 
     def _false(self):
         return torch.zeros((), dtype=torch.bool, device=self.device)
@@ -199,6 +216,21 @@ class _PerStepEngine:
             lay = self._rebuild(x, y)
         guard = nbr.step_displacement_exceeded(self.spec, x0, y0, x, y)
         return lay, dt_h, guard
+
+    def _step(self, state: State, lay, geom, step_idx: int, remain, g, mu,
+              shear: bool):
+        """One step: the physics, then the neighbors refreshed every
+        ``rebuild_every`` steps or on accumulated drift and the geometry
+        every step. Returns (state, layout, geometry, dt, host dt,
+        overflow, guard, tau_bottom, tau_top); tau is None unless
+        ``shear``."""
+        new_state, dt = self._advance(state, lay, geom, remain, g, mu)
+        lay, dt_h, guard = self._refresh(lay, state.x, state.y, new_state.x,
+                                         new_state.y, dt, step_idx)
+        geom = self._geometry(lay, new_state)
+        tau = (self.final_shear(new_state, lay, geom, mu) if shear
+               else (None, None))
+        return (new_state, lay, geom, dt, dt_h, lay.overflow, guard) + tau
 
     def step(self, state: State, lay, geom, step_idx: int = 0,
              remain=float("inf"), g=None, mu=None):
@@ -270,6 +302,102 @@ class _PerStepEngine:
             t_local=t_local, t_comp=t_comp, n_syncs=n_syncs + 1,
             step_log=logbuf, step_log_n=logn)
 
+    def _lane_advance(self, state: State, lay, geom, remain, g, mu):
+        """A lane's step up to its refresh: (state, dt, accumulated-drift
+        flag, single-step guard); mapped over the lanes by ``run_lanes``."""
+        new_state, dt = self._advance(state, lay, geom, remain, g, mu)
+        if self.cfg.rebuild_every <= 1:
+            return new_state, dt, self._false(), self._false()
+        return (new_state, dt, self._drift_over(lay, new_state.x,
+                                                new_state.y),
+                nbr.step_displacement_exceeded(self.spec, state.x, state.y,
+                                               new_state.x, new_state.y))
+
+    def _lanes(self):
+        """The lane-mapped functions (``torch.func.vmap`` over a leading
+        lane axis), made once."""
+        if self._lane_fns is None:
+            vmap = torch.func.vmap
+            self._lane_fns = dict(
+                advance=vmap(self._lane_advance),
+                rebuild=vmap(self._rebuild),
+                geometry=vmap(self._geometry),
+                shear=vmap(self.final_shear),
+                pairs=vmap(self._count_pairs))
+        return self._lane_fns
+
+    def run_lanes(self, states: State, lays, geoms, interval_len, gs,
+                  mus) -> IntervalResult:
+        """Run every lane to the next output point in lockstep (the JAX
+        sweep's ``jax.vmap(engine._run_interval)``, sweep.py:163-164).
+        ``states``, ``lays`` and ``geoms`` carry a leading lane axis, ``gs``
+        and ``mus`` one value a lane. Each step is one mapped step of every
+        lane and ONE host sync, which reads every lane's dt and drift flag
+        together. A lane rebuilds when its own cadence or drift says so:
+        the mapped rebuild runs once and each lane takes its result or
+        keeps its layout (``torch.where``, as ``lax.cond`` under vmap). A
+        lane that reached the output point is frozen (its carry, clock and
+        step count stay) while the others run on, so each lane takes the
+        steps and rebuilds of its single run. No step log. Returns an
+        ``IntervalResult`` whose fields hold one value a lane: ``n_steps``
+        and ``skin_guard`` as numpy arrays, the rest as tensors."""
+        cfg, spec = self.cfg, self.spec
+        fns = self._lanes()
+        f = np.float32 if self.dtype == torch.float32 else np.float64
+        nf = spec.n_fluid
+        n = states.x.shape[0]
+        gs = torch.as_tensor(np.asarray(gs), dtype=self.dtype,
+                             device=self.device)
+        mus = torch.as_tensor(np.asarray(mus), dtype=self.dtype,
+                              device=self.device)
+        interval = f(interval_len)
+        t_local = np.zeros(n, f)
+        t_comp = np.zeros(n, f)
+        n_steps = np.zeros(n, np.int64)
+        n_syncs = 0
+        rb = int(cfg.rebuild_every)
+        overflow = lays.overflow
+        guard = torch.zeros(n, dtype=torch.bool, device=self.device)
+        active = t_local < interval
+        while active.any():
+            remain = torch.as_tensor(interval - t_local, device=self.device)
+            new, dt, drift, grd = fns["advance"](states, lays, geoms, remain,
+                                                 gs, mus)
+            # the one host sync of the step, for every lane
+            dt_h, drift_h = torch.stack([dt, drift.to(dt.dtype)]).tolist()
+            n_syncs += 1
+            every_lane = bool(active.all())
+            act = torch.as_tensor(active, device=self.device)
+            step_idx = int(n_steps[active][0])
+            due = active & ((rb <= 1 or step_idx % rb == 0)
+                            | np.asarray(drift_h, bool))
+            if due.any():
+                rebuilt = fns["rebuild"](new.x, new.y)
+                lays = (rebuilt if due.all() else _lane_where(
+                    torch.as_tensor(due, device=self.device), rebuilt, lays))
+            geom_new = fns["geometry"](lays, new)
+            if every_lane:
+                states, geoms = new, geom_new
+            else:
+                states = _lane_where(act, new, states)
+                geoms = _lane_where(act, geom_new, geoms)
+            overflow = torch.logical_or(overflow, lays.overflow)
+            guard = torch.logical_or(guard, torch.logical_and(grd, act))
+            tl, tc = _t_add(t_local, t_comp, np.asarray(dt_h, f))
+            t_local = np.where(active, tl, t_local)
+            t_comp = np.where(active, tc, t_comp)
+            n_steps += active
+            active = t_local < interval
+        tau_b, tau_t = fns["shear"](states, lays, geoms, mus)
+        v_max = torch.sqrt(torch.amax(states.vx[:, :nf] ** 2
+                                      + states.vy[:, :nf] ** 2, dim=1))
+        n_pairs = fns["pairs"](lays, geoms)
+        return IntervalResult(
+            state=states, cands=lays, geom=geoms, tau_bottom=tau_b,
+            tau_top=tau_t, n_steps=n_steps, overflow=overflow,
+            skin_guard=guard.cpu().numpy(), v_max=v_max, n_pairs=n_pairs,
+            t_local=t_local, t_comp=t_comp, n_syncs=n_syncs + 1)
+
 
 class CellEngine(_PerStepEngine):
     """The cell-layout engine of plain torch ops (``ops/cellgrid.py``; the
@@ -297,11 +425,12 @@ class CellEngine(_PerStepEngine):
     def _count_pairs(self, lay, geom):
         return cg.count_pairs(lay, geom)
 
-    def _step(self, state: State, lay, geom, step_idx: int, remain, g, mu,
-              shear: bool):
-        """One step (JAX ``CellEngine._step``). Returns (state, layout,
-        geometry, dt, host dt, overflow, guard, tau_bottom, tau_top); tau
-        is None unless ``shear``."""
+    def _geometry(self, lay, state: State):
+        return cg.compute_geometry(self.spec, lay, state.x, state.y)
+
+    def _advance(self, state: State, lay, geom, remain, g, mu):
+        """The step up to its wrapped positions (JAX ``CellEngine._step``
+        before the refresh): (state, dt)."""
         cfg, spec = self.cfg, self.spec
         nf = spec.n_fluid
         dt = verlet_dt(state.vx[:nf], state.vy[:nf], cfg.c_f, cfg.h,
@@ -311,20 +440,14 @@ class CellEngine(_PerStepEngine):
             state.vy, state.drho_dt, dt, cfg.rho0, cfg.p0, cfg.c_f,
             cfg.inv_sigma0, cfg.transport_coeff, g, mu,
             cfg.wall_visc_factor)
-        x = periodic_wrap(spec, out["x"])
-        y = out["y"]
-        lay, dt_h, guard = self._refresh(lay, state.x, state.y, x, y, dt,
-                                         step_idx)
-        geom = cg.compute_geometry(spec, lay, x, y)
         new_state = State(
-            x=x, y=y, vx=out["vx"], vy=out["vy"], rho=out["rho"],
-            p=out["p"], drho_dt=out["drho_dt"], fx=out["fx"], fy=out["fy"],
+            x=periodic_wrap(spec, out["x"]), y=out["y"], vx=out["vx"],
+            vy=out["vy"], rho=out["rho"], p=out["p"],
+            drho_dt=out["drho_dt"], fx=out["fx"], fy=out["fy"],
             fpx=out["fpx"], fpy=out["fpy"], vol=out["vol"],
             b11=out["b11"], b12=out["b12"], b21=out["b21"],
             b22=out["b22"])
-        tau = (self.final_shear(new_state, lay, geom, mu) if shear
-               else (None, None))
-        return (new_state, lay, geom, dt, dt_h, lay.overflow, guard) + tau
+        return new_state, dt
 
     def init(self, state: State):
         """Initial layout + density/KGC/EOS pass (SPH_Poiseuille.m:165-173):
@@ -384,11 +507,14 @@ class Engine(_PerStepEngine):
     def _count_pairs(self, cands, geom):
         return nbr.count_pairs(geom)
 
-    def _step(self, state: State, cands, geom, step_idx: int, remain, g,
-              mu, shear: bool):
-        """One step (JAX ``Engine._step``). Returns (state, candidates,
-        geometry, dt, host dt, overflow, guard, tau_bottom, tau_top); tau
-        is None unless ``shear``."""
+    def _geometry(self, cands, state: State):
+        return nbr.compute_geometry(self.spec, cands, state.x, state.y,
+                                    state.vol)
+
+    def _advance(self, state: State, cands, geom, remain, g, mu):
+        """The step up to its wrapped positions (JAX ``Engine._step``
+        before the refresh): (state, dt). The Verlet step integrates on
+        the pre-shift geometry, as the reference does."""
         cfg, spec = self.cfg, self.spec
         nf = spec.n_fluid
         js = cands.jsafe
@@ -437,19 +563,9 @@ class Engine(_PerStepEngine):
         rho, p = finalize_density(spec, rho_half, drho_dt, dt, cfg.rho0,
                                   cfg.p0)
         x = periodic_wrap(spec, x)
-
-        # candidates every `rebuild_every` steps or on accumulated drift,
-        # geometry every step (gather D)
-        cands, dt_h, guard = self._refresh(cands, state.x, state.y, x, y,
-                                           dt, step_idx)
-        geom = nbr.compute_geometry(spec, cands, x, y, vol)
-        new_state = State(x=x, y=y, vx=vx2, vy=vy2, rho=rho, p=p,
-                          drho_dt=drho_dt, fx=fx, fy=fy, fpx=fpx, fpy=fpy,
-                          vol=vol, b11=b11, b12=b12, b21=b21, b22=b22)
-        tau = (self.final_shear(new_state, cands, geom, mu) if shear
-               else (None, None))
-        return (new_state, cands, geom, dt, dt_h, cands.overflow,
-                guard) + tau
+        return State(x=x, y=y, vx=vx2, vy=vy2, rho=rho, p=p,
+                     drho_dt=drho_dt, fx=fx, fy=fy, fpx=fpx, fpy=fpy,
+                     vol=vol, b11=b11, b12=b12, b21=b21, b22=b22), dt
 
     def init(self, state: State):
         """Initial candidate build + density/KGC pass

@@ -1,7 +1,8 @@
 """The port's command line end to end on a tiny ini with ``--device cpu``,
 its five ``SPH_*_OVERRIDE`` environment variables, ``--profile``, the
-kernel-form flags and ``--step-log-every``, the flags that are not ported
-yet, and the rule that the package never imports jax."""
+kernel-form flags and ``--step-log-every``, the (g, mu) sweep flags, the
+flag that is not ported yet, and the rule that the package never imports
+jax."""
 
 import importlib.util
 import json
@@ -122,11 +123,52 @@ def test_postprocess_only(cli_run, capsys):
     assert rc == 1
 
 
-@pytest.mark.parametrize("flag", [["--mesh", "2"], ["--sweep-mus", "0.1"],
-                                  ["--sweep-lane-chunk", "4"]])
+@pytest.mark.parametrize("flag", [["--mesh", "2"]])
 def test_unported_flags_raise(flag):
     with pytest.raises(NotImplementedError, match="not yet ported"):
         cli.main(["--device", "cpu"] + flag)
+
+
+SWEEP_INI = TINY_INI.replace("end_time = 0.1\noutput_interval = 0.05",
+                             "end_time = 0.04\noutput_interval = 0.02")
+WORKLOAD = re.compile(r"workload (\d): mu=([\d.]+) L2=\d+\.\d{3}% "
+                      r"(PASS|FAIL)$")
+
+
+def _sweep_cli(tmp_path, capsys, name, flags):
+    ini = tmp_path / "sweep.ini"
+    ini.write_text(SWEEP_INI)
+    rc = cli.main(["--config", str(ini), "--device", "cpu", "--base-dir",
+                   str(tmp_path / name), "--sweep-mus", "0.1,0.25"] + flags)
+    out = capsys.readouterr().out
+    return rc, out, [ln for ln in out.splitlines() if WORKLOAD.match(ln)]
+
+
+def test_sweep_mus_prints_each_workload(tmp_path, capsys):
+    """--sweep-mus on the fused engine's plain twins: one workload line per
+    lane, the summed throughput line, each lane's restart, and exit 1 since
+    the 0.04 s lanes are undeveloped (every lane must pass for exit 0)."""
+    rc, out, lines = _sweep_cli(tmp_path, capsys, "fused",
+                                ["--sweep-lane-chunk", "1"])
+    assert [WORKLOAD.match(ln).group(1, 2) for ln in lines] == [
+        ("0", "0.1"), ("1", "0.25")], out
+    assert all(ln.endswith("FAIL") for ln in lines) and rc == 1
+    assert re.search(r"^throughput: \d\.\d{3}e[+-]\d+ particle-steps/sec "
+                     r"\(sum over lanes\)$", out, re.M), out
+    assert "inapplicable on the fused sweep path" in out
+    for k in range(2):
+        assert (tmp_path / "fused" / f"restart_lane{k}.npz").exists()
+
+
+def test_sweep_lane_chunk_gives_the_same_lanes(tmp_path, capsys):
+    """--engine cellgrid: lanes one at a time give the workload lines of
+    one chunk of every lane."""
+    rc1, _, chunked = _sweep_cli(tmp_path, capsys, "c1",
+                                 ["--engine", "cellgrid",
+                                  "--sweep-lane-chunk", "1"])
+    rc2, _, whole = _sweep_cli(tmp_path, capsys, "c2",
+                               ["--engine", "cellgrid"])
+    assert len(chunked) == 2 and chunked == whole and rc1 == rc2 == 1
 
 
 @pytest.mark.parametrize("flags,want", [
