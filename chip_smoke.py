@@ -103,6 +103,36 @@ Phases, each of which exits non-zero on failure before the last line:
    lanes for 0.05 s, each within 1e-10 of its own single run, with the ms
    per lane-step of one lane alone and of the four. Its launches count in
    the kernels line.
+7. the multi-device path on the one card (``parallel/sharding.py``; every
+   slab on cuda:0): (i) the step kernel on every extended slab of one
+   (ghost 4), two and four slabs at (b) from the jittered state, as
+   ``ShardedPallasEngine._one_step`` builds its inputs (the layout shim,
+   the occupancy bound, the whole domain's cache lanes), in every form
+   (none, the "auto" pick on the slab's spec, partial, rows) at both dts
+   against its plain twin, and the 16-step chunk on the one slab's
+   extended slab likewise; then ``ShardedPallasEngine`` with one slab
+   (ghost 4, the chunk kernel on its extended slab), two and four slabs
+   (the step kernel on each) against the single-device
+   ``PallasCellEngine`` at (b) under ``--geom-cache none``, and two slabs
+   under ``--fused-rows 1`` against the single-device rows run, for 0.02 s
+   from the same init: equal steps, pairs and rollbacks and every
+   ``State`` field bit-equal (the largest difference per field printed
+   otherwise, and the check fails);
+   (ii) ``--mesh 1``, ``--mesh 2`` and ``--mesh 4`` through the CLI at (b)
+   under "auto" for 0.3 s: clean flags, tau finite and rising, ``sph_step``
+   in the form the slab resolves to launched once per slab per slab step
+   and no other step or chunk form, the wall shear once per interval (one
+   slab: phase 3's launches), the final state bit-equal to phase 3's
+   single-device (b) run (a slab's cache kernels take the whole domain's
+   lanes per anchor; a slab that resolves to another kernel form than the
+   whole domain fails the check), and ms per step beside that run's;
+   (iii) ``--mesh 2 --dtype float64`` (``ShardedCellEngine``) on
+   config.ini for 0.05 s within 1e-10 of ``CellEngine`` on the same
+   padded grid, no kernel launched.
+   Its launches count in the kernels line.
+8. where cmake exists: the gather engine's operators in float64 on the
+   card against the native C++ oracle (``utils/native_oracle.py``) within
+   1e-9 of each output's scale; where it does not, a line says so.
 
 Prints the card's name and power limit, a ``{"kernels": [...]}`` line
 (each kernel with its time, its plain version's and the least time the
@@ -187,6 +217,9 @@ class Check:
 
     def __init__(self):
         self.max_abs = {}
+        # (relative error, core) of the largest relative error since a
+        # caller last set it to (0.0, "")
+        self.worst = (0.0, "")
 
     def core(self, kernel: str, name: str, got, ref, tol: float,
              absolute: float = None, record: bool = True,
@@ -212,6 +245,7 @@ class Check:
         scale = max(1.0, float(ref.abs().max()))
         bound = tol * scale if absolute is None else absolute
         rel = err / scale
+        self.worst = max(self.worst, (rel, f"{kernel}/{name}"))
         if say:
             _say(f"  {kernel:17s} {name:18s} max_abs={err:.3e} "
                  f"rel={rel:.3e} bound={bound:.1e}")
@@ -298,9 +332,13 @@ def phase_build() -> None:
 
 
 def _check_form(device, check: Check, label: str, cfg, spec, lay, args,
-                dt, flabel: str) -> dict:
+                dt, flabel: str, chunks=None, cache_slots: int = 0,
+                say: bool = True) -> dict:
     """The step at both dts and the grid's chunk cases in one form, each
-    against its plain twin in the same form. Returns the kernel outputs."""
+    against its plain twin in the same form. Returns the kernel outputs.
+    ``chunks``: the chunk cases (default ``CHUNKS[label]``);
+    ``cache_slots``: the kernels' lane pick (``fused_cell_cuda._const``);
+    ``say``: print a line per core."""
     import torch
     from sph_poiseuille_flow_torch.ops import fused_cell as fc
     from sph_poiseuille_flow_torch.ops import fused_cell_cuda as fcc
@@ -309,8 +347,9 @@ def _check_form(device, check: Check, label: str, cfg, spec, lay, args,
     cform = fc.chunk_form(spec, torch.float32)
     kstep = fcc.launch_key("fused_step", sform[0])
     kchunk = fcc.launch_key("fused_chunk", cform[0])
-    _say(f"  form {flabel} ({label}): step {sform} -> {kstep}, chunk "
-         f"{cform} -> {kchunk}")
+    if say:
+        _say(f"  form {flabel} ({label}): step {sform} -> {kstep}, chunk "
+             f"{cform} -> {kchunk}")
     if flabel == "partial" and not 0 < cform[1] < spec.K:
         raise AssertionError(f"partial k_cut {cform[1]} does not split "
                              f"K={spec.K}")
@@ -318,20 +357,22 @@ def _check_form(device, check: Check, label: str, cfg, spec, lay, args,
     for dtv, tc in ((0.0, 0.0), (dt, cfg.transport_coeff)):
         sc = (cfg.rho0, cfg.p0, cfg.c_f, cfg.inv_sigma0, tc, cfg.gravity_g,
               cfg.mu, cfg.wall_visc_factor)
-        got = fc.fused_step_cores(spec, lay, *args, dtv, *sc)
+        got = fc.fused_step_cores(spec, lay, *args, dtv, *sc,
+                                  cache_slots=cache_slots)
         ref = fc.fused_step_cores_plain(spec, lay, *args, dtv, *sc)
         torch.cuda.synchronize()
         tag = f"{label}/{flabel}:" + ("" if tc else "@0:")
         for k in sorted(ref):
             check.core(kstep, tag + k, got[k], ref[k], TOL_STEP,
-                       _abs_bound(k, TOL_STEP, cfg.p0, 0.0))
+                       _abs_bound(k, TOL_STEP, cfg.p0, 0.0), say=say)
         outs[f"step{'' if tc else '@0'}"] = got
 
     sc = (cfg.rho0, cfg.p0, cfg.c_f, cfg.inv_sigma0, cfg.transport_coeff,
           cfg.gravity_g, cfg.mu, cfg.wall_visc_factor)
-    for n_sub, interval, want in CHUNKS[label]:
+    for n_sub, interval, want in (CHUNKS[label] if chunks is None
+                                  else chunks):
         got = fc.fused_chunk_call(spec, lay, *args, 0.0, 0.0, interval,
-                                  n_sub, *sc)
+                                  n_sub, *sc, cache_slots=cache_slots)
         ref = fc.fused_chunk_call_plain(spec, lay, *args, 0.0, 0.0, interval,
                                         n_sub, *sc)
         torch.cuda.synchronize()
@@ -352,10 +393,10 @@ def _check_form(device, check: Check, label: str, cfg, spec, lay, args,
         for part in (0, 1):
             for k in sorted(ref[part]):
                 check.core(kchunk, tag + k, got[part][k], ref[part][k], tol,
-                           _abs_bound(k, tol, cfg.p0, cnt))
+                           _abs_bound(k, tol, cfg.p0, cnt), say=say)
         for i, k in ((3, "t"), (4, "t_comp")):
             check.core(kchunk, tag + k, got[i].reshape(1),
-                       ref[i].reshape(1), tol * 1e-3)
+                       ref[i].reshape(1), tol * 1e-3, say=say)
         _say(f"  {kchunk} ({label}) n_sub={n_sub} interval={interval} "
              f"steps={gs} t={float(got[3]):.9e} plain t={float(ref[3]):.9e}")
         outs[f"chunk{n_sub}"] = {**got[0], **{f"aux:{k}": v
@@ -1383,6 +1424,409 @@ def phase_sweep(device) -> dict:
                 ms_per_lane_step={str(n): v for n, v in ms.items()})
 
 
+# phase 7: the multi-device path on the one card. (i) the kernels on the
+# slabs' extended specs against their plain twins, and slab counts held bit
+# for bit to one device at (b) under the recompute and the rows forms; (ii)
+# the CLI with --mesh at (b) under "auto"
+MESH_SLABS = ((1, 4), (2, None), (4, None))   # (slabs, ghost)
+MESH_EQUAL = (("none", dict(geom_cache="none"), MESH_SLABS),
+              ("rows", dict(fused_rows="1"), ((2, None),)))
+MESH_CLI = (1, 2, 4)
+
+
+def _mesh_cli(name, n, ini_text, extra):
+    """One --mesh CLI run; the result with the engine's slab facts."""
+    from sph_poiseuille_flow_torch import simulation
+    seen = {}
+    orig = simulation.Simulation._make_sharded_engine
+
+    def keep(self, n_devices):
+        seen["engine"] = orig(self, n_devices)
+        return seen["engine"]
+
+    simulation.Simulation._make_sharded_engine = keep
+    try:
+        res = _run_cli(name, ini_text, ["--mesh", str(n)] + list(extra))
+    finally:
+        simulation.Simulation._make_sharded_engine = orig
+    res["engine_obj"] = seen["engine"]
+    return res
+
+
+def _slab_kernels(device, check: Check) -> None:
+    """Each kernel of the mesh path on the inputs the path gives it at (b)
+    from the jittered state: every extended slab of ``MESH_SLABS``
+    (rows_loc + 2 ghost rows, the layout shim, the group's occupancy
+    bound, the whole domain's cache lanes), built as ``_one_step`` builds
+    them, in every form of ``FORMS`` (none, the "auto" pick on the slab's
+    spec, partial, rows): the step at both dts against its plain twin,
+    and on one slab (ghost 4) the 16-step chunk too."""
+    import torch
+    from sph_poiseuille_flow_torch.config import derive_config
+    from sph_poiseuille_flow_torch.models.poiseuille import build_scene
+    from sph_poiseuille_flow_torch.ops import fused_cell as fc
+    from sph_poiseuille_flow_torch.ops.integration import verlet_dt
+    from sph_poiseuille_flow_torch.parallel import (ShardedPallasEngine,
+                                                    make_mesh)
+
+    cfg = derive_config(**DP001)
+    scene = build_scene(cfg)
+    s0 = _jittered_state(cfg, scene, device)
+    nf = scene.n_fluid
+    dt = verlet_dt(s0.vx[:nf], s0.vy[:nf], cfg.c_f, cfg.h, cfg.nu,
+                   cfg.gravity_g, 1.0)
+    for n, ghost in MESH_SLABS:
+        eng = ShardedPallasEngine(cfg, scene, make_mesh(n), ghost=ghost)
+        s, lay, _, ovf = eng.init(s0)
+        if bool(ovf):
+            raise AssertionError(f"mesh kernels: {n} slab(s) overflow")
+        sts, _, statics, _, _ = eng._entry(s, lay)
+        stat_h = eng._stat_h({k: [st[k] for st in statics]
+                              for k in ("isf", "mass", "wvx", "wvy")})
+        slabs = eng._slab_args(sts, stat_h)
+        for flabel, knobs in FORMS:
+            fspec = _form_spec(eng.slab_spec, knobs)
+            check.worst = (0.0, "")
+            for i, (shim, *args) in enumerate(slabs):
+                _check_form(device, check, f"mesh{n}/slab{i}", cfg, fspec,
+                            shim, args, dt, flabel,
+                            chunks=CHUNKS["b"] if n == 1 else (),
+                            cache_slots=eng.cache_slots, say=False)
+            _say(f"mesh (i) kernels, {n} slab(s) ghost {eng.ghost}, "
+                 f"extended slab {tuple(slabs[0][1].shape)}, form {flabel}"
+                 f" ({fc.step_form(fspec, torch.float32)}): step"
+                 f"{' and 16-step chunk' if n == 1 else ''} on every slab "
+                 f"against the plain twin, worst rel {check.worst[0]:.3e} "
+                 f"({check.worst[1]})")
+
+
+def phase_mesh(device, main_res, check: Check) -> dict:
+    """(i) The kernels on the slabs' extended specs against their plain
+    twins (``_slab_kernels``); then ``ShardedPallasEngine`` with one slab
+    (ghost 4), two and four slabs on the card against the single-device
+    ``PallasCellEngine`` at (b) under ``--geom-cache none``, and two slabs
+    under ``--fused-rows 1``, over 0.02 s from the same init: equal steps,
+    pairs and rollbacks and every ``State`` field bit-equal (the largest
+    difference per field printed otherwise, and the check fails); the
+    step kernel launched slabs x slab steps times (the chunk on one
+    slab). (ii) ``--mesh 1``, ``--mesh 2`` and ``--mesh 4`` through the
+    CLI at (b) under "auto" for 0.3 s: clean flags, finite rising tau,
+    the step kernel of the form the slab resolves to launched once per
+    slab per slab step and no other step or chunk form, the wall shear
+    once per interval (one slab: phase 3's launches), the slab's kernel
+    form and lanes those of the whole domain, and the final state
+    bit-equal to phase 3's single-device (b) run; ms per step beside it.
+    (iii) ``--mesh 2 --dtype float64`` (``ShardedCellEngine``) on
+    config.ini for 0.05 s within 1e-10 of ``CellEngine`` on the same
+    padded grid."""
+    import math
+    import numpy as np
+    import torch
+    from sph_poiseuille_flow_torch.config import derive_config, load_config
+    from sph_poiseuille_flow_torch.models.poiseuille import build_scene
+    from sph_poiseuille_flow_torch.ops import fused_cell as fc
+    from sph_poiseuille_flow_torch.ops import fused_cell_cuda as fcc
+    from sph_poiseuille_flow_torch.parallel import (ShardedCellEngine,
+                                                    ShardedPallasEngine,
+                                                    make_mesh)
+    from sph_poiseuille_flow_torch.stepper import (CellEngine,
+                                                   PallasCellEngine,
+                                                   initial_state)
+
+    t0 = time.perf_counter()
+    counts, out = {}, {}
+
+    # (i) the kernels on the slabs' specs, then bit-equality at (b) under
+    # the recompute and the rows forms, 0.02 s
+    _slab_kernels(device, check)
+    base = derive_config(**DP001)
+    scene = build_scene(base)
+    s0 = initial_state(base, scene, device)
+
+    def interval(eng):
+        s, lay, geom, ovf = eng.init(s0)
+        r = eng.run_interval(s, lay, geom, np.float32(0.02))
+        torch.cuda.synchronize()
+        if bool(ovf) or bool(r.overflow) or r.skin_guard:
+            raise AssertionError(f"mesh (i) {type(eng).__name__}: flags "
+                                 "not clean")
+        return r
+
+    for flabel, knobs, slabs in MESH_EQUAL:
+        cfg = dataclasses.replace(base, **knobs)
+        fcc.reset_launch_counts()
+        ref = interval(PallasCellEngine(cfg, scene, device))
+        _say(f"mesh (i) one device, {flabel}: launches {dict(fcc.LAUNCHES)}")
+        for n, ghost in slabs:
+            fcc.reset_launch_counts()
+            eng = ShardedPallasEngine(cfg, scene, make_mesh(n), ghost=ghost)
+            t1 = time.perf_counter()
+            r = interval(eng)
+            wall = time.perf_counter() - t1
+            c = dict(fcc.LAUNCHES)
+            counts[f"mesh_eq{n}_{flabel}"] = c
+            diffs = {}
+            for f in ref.state._fields:
+                a, b = getattr(ref.state, f), getattr(r.state, f)
+                if not torch.equal(a, b):
+                    d = (a.double() - b.double()).abs()
+                    i = int(torch.argmax(d))
+                    diffs[f] = (float(d.max()), i,
+                                "fluid" if i < scene.n_fluid else "wall")
+            form = fc.step_form(eng.slab_spec, torch.float32)[0]
+            _say(f"mesh (i) (b) {flabel}, {n} slab(s) ghost {eng.ghost} "
+                 f"rows_loc {eng.rows_loc} (slab form {form}): steps "
+                 f"{r.n_steps}/{ref.n_steps} pairs "
+                 f"{int(r.n_pairs)}/{int(ref.n_pairs)} rollbacks "
+                 f"{r.n_rollbacks}/{ref.n_rollbacks} syncs {r.n_syncs}/"
+                 f"{ref.n_syncs} slab steps {eng.slab_steps} in {wall:.2f} "
+                 f"s; fields not bit-equal: {diffs or 'none'}; launches {c}")
+            for f, (d, i, kind) in diffs.items():
+                _say(f"  mesh (i) {f}: largest difference {d:.3e} at "
+                     f"particle {i} ({kind})")
+            if (diffs or r.n_steps != ref.n_steps or r.n_rollbacks
+                    != ref.n_rollbacks or int(r.n_pairs) != int(ref.n_pairs)
+                    or float(r.tau_bottom) != float(ref.tau_bottom)):
+                raise AssertionError(f"mesh (i): {n} slab(s) not bit-equal "
+                                     f"to one device under {flabel}")
+            kstep = fcc.launch_key("fused_step", form)
+            kchunk = fcc.launch_key("fused_chunk", form)
+            want = ({kstep: 1, kchunk: c[kchunk], "fused_wall_shear": 1}
+                    if n == 1 else
+                    {kstep: n * eng.slab_steps, "fused_wall_shear": 1})
+            if n == 1 and c[kchunk] <= 0:
+                raise AssertionError("mesh (i): one slab launched no chunk")
+            bad = {k: v for k, v in c.items() if v != want.get(k, 0)}
+            if bad:
+                raise AssertionError(f"mesh (i) {n} slab(s) {flabel}: "
+                                     f"launches {bad}, want {want}")
+
+    # (ii) --mesh 2 / 4 at (b) under "auto" through the CLI, 0.3 s
+    ini = "".join(
+        [f"[physical]\n"]
+        + [f"{k} = {DP001[k]}\n" for k in ("DL", "DH", "dp", "rho0", "mu",
+                                           "U_bulk", "c_f")]
+        + ["[simulation]\n"]
+        + [f"{k} = {int(DP001[k])}\n" if k != "end_time"
+           and k != "output_interval" else f"{k} = {DP001[k]}\n"
+           for k in ("end_time", "output_interval", "sort_interval",
+                     "restart_from_file")])
+    flags = ["--neighbor-skin", str(DP001["neighbor_skin"]),
+             "--rebuild-every", str(DP001["rebuild_every"]),
+             "--cell-capacity", str(DP001["cell_capacity"]),
+             "--lane-pack-nx", str(DP001["lane_pack_nx"])]
+    rb = main_res["runs"]["b"]
+    ms_one = 1e3 * rb["wall_time_in_loop"] / rb["step"]
+    out["ms_per_step"] = {"1": ms_one}
+    for n in MESH_CLI:
+        fcc.reset_launch_counts()
+        res = _mesh_cli(f"mesh{n}_dp001", n, ini, flags)
+        c = dict(fcc.LAUNCHES)
+        counts[f"mesh{n}"] = c
+        eng = res["engine_obj"]
+        form = fc.step_form(eng.slab_spec, torch.float32)[0]
+        key = fcc.launch_key("fused_step", form)
+        taus = [tb for _, tb, _ in res["tau_history"]]
+        st = res["final_state"]
+        finite = all(bool(torch.isfinite(getattr(st, f)).all())
+                     for f in st._fields)
+        ms = 1e3 * res["wall_time_in_loop"] / res["step"]
+        out["ms_per_step"][str(n)] = ms
+        out[f"mesh{n}"] = dict(steps=res["step"], slab_steps=eng.slab_steps,
+                               form=form, rows_loc=eng.rows_loc,
+                               host_syncs=res["host_syncs"],
+                               wall=res["wall_time_in_loop"], ms=ms,
+                               tau=taus)
+        _say(f"mesh (ii) --mesh {n} dp={DP001['dp']} auto: engine "
+             f"{res['engine']} "
+             f"rows_loc {eng.rows_loc} slab form {form} (whole domain "
+             f"{fc.step_form(eng.spec, torch.float32)[0]}): steps "
+             f"{res['step']} slab steps {eng.slab_steps} tau_bottom "
+             f"{['%.5f' % v for v in taus]} host_syncs {res['host_syncs']} "
+             f"ms/step {ms:.4f} (one device, phase 3 (b): {ms_one:.4f}) "
+             f"launches {c}")
+        if (res["engine"] != "ShardedPallasEngine" or not finite
+                or not all(math.isfinite(v) for v in taus)
+                or not all(b > a for a, b in zip(taus, taus[1:]))):
+            raise AssertionError(f"mesh (ii) --mesh {n}: not a clean run")
+        # the slabs run the whole domain's kernel form with its lanes per
+        # anchor (the cache form's sums depend on them), so the run is
+        # phase 3's single-device (b) run, bit for bit. A slab that
+        # resolved to another form could not be held to it: that fails.
+
+        def kernel(spec, form, cache_slots=0):
+            c = fcc._const(spec, fc.plan(spec)[0], 1.0, 0.0, 0.0, 0.0, 0.0,
+                           cache_slots=cache_slots)
+            return fcc._form(*form(spec, torch.float32), spec.K), c.cg0, c.cg
+
+        slab_k = kernel(eng.slab_spec, fc.step_form, eng.cache_slots)
+        whole_k = kernel(eng.spec, fc.chunk_form)
+        diff = {f: float((getattr(st, f).double()
+                          - getattr(rb["final_state"], f).double())
+                         .abs().max()) for f in st._fields}
+        out[f"mesh{n}"]["max_diff_vs_one_device"] = max(diff.values())
+        _say(f"  --mesh {n} against one device: steps {res['step']}/"
+             f"{rb['step']}, largest field difference "
+             f"{max(diff.values()):.3e} (kernel form, lanes: slab {slab_k}, "
+             f"whole domain {whole_k}; must be 0)")
+        if slab_k != whole_k:
+            raise AssertionError(f"mesh (ii) --mesh {n}: the slab resolves "
+                                 f"to {slab_k}, the whole domain to "
+                                 f"{whole_k}: the run cannot be held to one "
+                                 "device bit for bit")
+        if any(diff.values()) or res["step"] != rb["step"]:
+            raise AssertionError(f"mesh (ii) --mesh {n}: not bit-equal to "
+                                 f"one device: {diff}")
+        # one slab (ghost 0) runs the single-device loop: phase 3's
+        # launches exactly
+        want = (main_res["counts"]["b"] if n == 1 else
+                {key: n * eng.slab_steps,
+                 "fused_wall_shear": len(res["tau_history"])})
+        bad = {k: v for k, v in c.items() if v != want.get(k, 0)}
+        if bad:
+            raise AssertionError(f"mesh (ii) --mesh {n}: launches {bad}, "
+                                 f"want {want}")
+
+    # (iii) float64 on two slabs of the cell-layout engine
+    fcc.reset_launch_counts()
+    res = _mesh_cli("mesh2_f64", 2, None, [
+        "--dtype", "float64", "--set", "simulation.end_time=0.05",
+        "--set", "simulation.output_interval=0.025"])
+    counts["mesh2_f64"] = dict(fcc.LAUNCHES)
+    cfg = load_config(os.path.join(ROOT, "config.ini"), dtype="float64",
+                      ini_overrides={"simulation": dict(
+                          end_time=0.05, output_interval=0.025)})
+    scene = build_scene(cfg)
+    eng = CellEngine(cfg, scene, device, s_multiple=2)
+    s, lay, geom, _ = eng.init(initial_state(cfg, scene, device))
+    t = 0.0
+    while t < cfg.end_time - 1e-9:
+        target = min(t + cfg.output_interval, cfg.end_time)
+        r = eng.run_interval(s, lay, geom, np.float64(target - t))
+        s, lay, geom, t = r.state, r.cands, r.geom, target
+    worst = 0.0
+    for f in s._fields:
+        a = getattr(s, f)
+        rel = float((getattr(res["final_state"], f) - a).abs().max()) / max(
+            1.0, float(a.abs().max()))
+        worst = max(worst, rel)
+    _say(f"mesh (iii) --mesh 2 float64 config.ini 0.05 s: engine "
+         f"{res['engine']} steps {res['step']} worst field vs CellEngine "
+         f"(s_multiple 2) {worst:.2e} (bound 1e-10) launches "
+         f"{counts['mesh2_f64']}")
+    if (res["engine"] != "ShardedCellEngine"
+            or not isinstance(res["engine_obj"], ShardedCellEngine)
+            or not worst <= 1e-10 or any(counts["mesh2_f64"].values())):
+        raise AssertionError("mesh (iii): float64 two-slab run off its "
+                             "single-device run, or a kernel launched")
+    out["f64_worst"] = worst
+    _say(f"mesh phase done in {time.perf_counter() - t0:.1f} s")
+    out["counts"] = counts
+    return out
+
+
+def phase_oracle(device) -> dict:
+    """The gather engine's operators (``ops/``, float64) on the card
+    against the native C++ oracle (``utils/native_oracle.py``, built with
+    cmake) on a jittered tiny box: density, KGC, the Verlet step and the
+    wall shear within 1e-9 of each output's scale. Skipped, and said so,
+    where cmake is missing."""
+    import shutil
+    import numpy as np
+    import torch
+    from sph_poiseuille_flow_torch.config import derive_config
+    from sph_poiseuille_flow_torch.models.poiseuille import build_scene
+    from sph_poiseuille_flow_torch.ops import density as den
+    from sph_poiseuille_flow_torch.ops import integration as integ
+    from sph_poiseuille_flow_torch.ops import monitors as mon
+    from sph_poiseuille_flow_torch.ops import neighbors as nbr
+    from sph_poiseuille_flow_torch.utils import native_oracle
+
+    if shutil.which("cmake") is None:
+        _say("native oracle: cmake not found on this machine; the check "
+             "against the C++ oracle is skipped")
+        return dict(skipped=True)
+    os.environ["SPH_ORACLE_BUILD_DIR"] = os.path.join(OUT, "oracle_build")
+    cfg = derive_config(DL=1.0, DH=0.5, dp=0.05, rho0=1.0, mu=0.1,
+                        U_bulk=0.666667, c_f=15.0, end_time=1.0,
+                        output_interval=0.5, sort_interval=100,
+                        restart_from_file=False, dtype="float64")
+    scene = build_scene(cfg)
+    rng = np.random.default_rng(11)
+    nf, n = scene.n_fluid, scene.n_total
+    x = np.asarray(scene.x, np.float64).copy()
+    y = np.asarray(scene.y, np.float64).copy()
+    x[:nf] = np.mod(x[:nf] + rng.uniform(-0.3, 0.3, nf) * cfg.dp, cfg.DL)
+    y[:nf] += rng.uniform(-0.3, 0.3, nf) * cfg.dp
+    vel = np.zeros((n, 2))
+    vel[:nf] = rng.normal(0, 0.3, (nf, 2))
+    drho = np.zeros(n)
+    drho[:nf] = rng.normal(0, 0.05, nf)
+    fprior = np.zeros((n, 2))
+    fprior[:nf] = rng.normal(0, 0.01, (nf, 2))
+    wall_vel = np.zeros((n, 2))
+    t0 = time.perf_counter()
+    pairs = native_oracle.build_pairs(x, y, nf, cfg.DL, cfg.h)
+    rho_c, vol_c, b_c = native_oracle.density_correction(
+        pairs, scene.mass, nf, n, cfg.rho0, cfg.h, cfg.inv_sigma0)
+    pos = np.stack([x, y], axis=1)
+    ver = native_oracle.integration_verlet(
+        pairs, vol_c, b_c, rho_c, scene.mass, pos, vel, drho, fprior, 1e-3,
+        nf, n, cfg.rho0, cfg.p0, cfg.c_f, wall_vel)
+    tau_c = native_oracle.wall_shear_monitor(
+        pairs, pos, vel, wall_vel, vol_c, b_c, nf, cfg.DL, cfg.DH, cfg.mu,
+        cfg.h)
+    build_s = time.perf_counter() - t0
+
+    def t(a):
+        return torch.as_tensor(np.asarray(a), dtype=torch.float64,
+                               device=device)
+
+    spec = nbr.make_grid_spec(cfg, scene)
+    xt, yt, mass = t(x), t(y), t(scene.mass)
+    z = torch.zeros(n, dtype=torch.float64, device=device)
+    cands = nbr.build_candidates(spec, xt, yt, mass, z, z)
+    geom = nbr.compute_geometry(spec, cands, xt, yt, z)
+    rho, vol = den.density_sums(spec, geom, cands, mass, cfg.rho0,
+                                cfg.inv_sigma0)
+    (vol_j,) = nbr.gather_pack(cands.jsafe, (vol,))
+    b = den.kernel_gradient_correction(spec, geom, vol_j)
+    b_o = [t(b_c[:, k]) for k in range(4)]
+    geom = nbr.compute_geometry(spec, cands, xt, yt, t(vol_c))
+    vx, vy = t(vel[:, 0]), t(vel[:, 1])
+    out = integ.verlet_step(
+        spec, geom, cands, t(vol_c), *b_o, t(rho_c), mass, xt, yt, vx, vy,
+        t(drho), t(fprior[:, 0]), t(fprior[:, 1]),
+        torch.tensor(1e-3, dtype=torch.float64, device=device), cfg.rho0,
+        cfg.p0, cfg.c_f)
+    tau = mon.wall_shear(spec, geom, cands, vx, t(vol_c), *b_o, cfg.DL,
+                         cfg.mu, cfg.h, 4.0)
+    pairs_of = dict(rho=(rho, rho_c), vol=(vol, vol_c),
+                    **{f"b{k}": (b[k], b_c[:, k]) for k in range(4)})
+    for name, g, w in zip(("rho2", "p2", "x2", "y2", "vx2", "vy2", "drho2",
+                           "fx", "fy"), out,
+                          (ver[0], ver[1], ver[2][:, 0], ver[2][:, 1],
+                           ver[3][:, 0], ver[3][:, 1], ver[4],
+                           ver[5][:, 0], ver[5][:, 1])):
+        pairs_of[name] = (g, w)
+    worst = 0.0
+    for name, (g, w) in pairs_of.items():
+        rel = float(np.max(np.abs(g.cpu().numpy() - w))) / max(
+            1.0, float(np.max(np.abs(w))))
+        worst = max(worst, rel)
+        if not rel <= 1e-9:
+            raise AssertionError(f"native oracle: {name} off by {rel:.2e}")
+    for k in range(2):
+        rel = abs(float(tau[k]) - tau_c[k]) / max(1e-12, abs(tau_c[k]))
+        worst = max(worst, rel)
+        if not rel <= 1e-9:
+            raise AssertionError(f"native oracle: tau[{k}] off by {rel:.2e}")
+    _say(f"native oracle: built and ran in {build_s:.1f} s; the gather "
+         f"operators in float64 on the card against it, {len(pairs_of) + 2}"
+         f" outputs, worst {worst:.2e} of scale (bound 1e-9)")
+    return dict(skipped=False, worst=worst)
+
+
 def _time(fn, reps: int) -> float:
     import torch
     fn()
@@ -1677,6 +2121,9 @@ def main() -> int:
         bench = phase_bench()
         sweep = phase_sweep(device)
         main_res["counts"]["sweep"] = sweep["counts"]
+        mesh = phase_mesh(device, main_res, check)
+        main_res["counts"].update(mesh["counts"])
+        oracle = phase_oracle(device)
         _say(f"all phases done in {time.perf_counter() - t0:.1f} s")
     except Exception:
         traceback.print_exc()
@@ -1715,6 +2162,9 @@ def main() -> int:
     print(json.dumps({"bench": bench}))
     print(json.dumps({"sweep": {k: v for k, v in sweep.items()
                                 if k != "counts"}}))
+    print(json.dumps({"mesh": {k: v for k, v in mesh.items()
+                               if k != "counts"}}))
+    print(json.dumps({"native_oracle": oracle}))
     for run, r in main_res["runs"].items():
         print(json.dumps({"run": run, "L2_error": r["L2_error"],
                           "steps": r["step"], "t": r["t"],

@@ -100,15 +100,22 @@ def _nview(spec: GridSpec, core):
     shifted concatenation (static slices only). For nx < 3 the halo
     columns are zero: the interior shifts alone cover every cell (the JAX
     ``_nview``'s dedup)."""
-    ny, nx = spec.ny, spec.nx
+    zrow = torch.zeros_like(core[:1])
+    return nview_bands(core, spec.nx, zrow, zrow)
+
+
+def nview_bands(core, nx: int, lo, hi):
+    """``_nview`` of a y-slab of cell rows ``core`` (rows, nx, K*F) whose
+    neighbor rows below and above are ``lo`` and ``hi`` (1, nx, K*F each;
+    zero rows at the walls): the slab's rows of the whole grid's view."""
+    ny = core.shape[0]
+    full = torch.cat([lo, core, hi], dim=0)
     if nx >= 3:
-        left, right = core[:, -1:], core[:, :1]
+        left, right = full[:, -1:], full[:, :1]
     else:
-        left = right = torch.zeros_like(core[:, :1])
-    h = torch.cat([left, core, right], dim=1)
-    rows = torch.cat([h[:, i:i + nx] for i in range(3)], dim=2)
-    zrow = torch.zeros_like(rows[:1])
-    rp = torch.cat([zrow, rows, zrow], dim=0)
+        left = right = torch.zeros_like(full[:, :1])
+    h = torch.cat([left, full, right], dim=1)
+    rp = torch.cat([h[:, i:i + nx] for i in range(3)], dim=2)
     out = torch.cat([rp[i:i + ny] for i in range(3)], dim=2)
     return out.reshape(ny * nx, -1)
 
@@ -184,6 +191,14 @@ def compute_geometry(spec: GridSpec, lay: CellLayout, x, y) -> CellGeometry:
     core_xy = _core(spec, lay.slot, (x, y))
     xa, ya = _apack(core_xy, 2)
     xv, yv = _unpack(_nview(spec, core_xy), 2)
+    return pair_geometry(spec, lay, xa, ya, xv, yv)
+
+
+def pair_geometry(spec: GridSpec, lay: CellLayout, xa, ya, xv,
+                  yv) -> CellGeometry:
+    """``compute_geometry`` from the slot positions (S, K) and their views
+    (S, 9K) of the cells ``lay`` holds (the whole grid, or a y-slab of it
+    whose view fields were sliced to its rows)."""
     dx = xa[:, :, None] - xv[:, None, :]
     dx = dx - spec.DL * torch.round(dx / spec.DL)
     dy = ya[:, :, None] - yv[:, None, :]
@@ -193,7 +208,7 @@ def compute_geometry(spec: GridSpec, lay: CellLayout, x, y) -> CellGeometry:
              & (r2 < spec.cutoff * spec.cutoff) & (r2 > 1e-24))
     r = torch.sqrt(torch.where(valid, r2, torch.ones((), dtype=r2.dtype,
                                                      device=r2.device)))
-    fvalid = valid.to(x.dtype)
+    fvalid = valid.to(xa.dtype)
     inv_r = 1.0 / r
     return CellGeometry(rm=r * fvalid, ex=dx * inv_r * fvalid,
                         ey=dy * inv_r * fvalid)
@@ -213,15 +228,20 @@ def displacement_exceeded(spec: GridSpec, lay: CellLayout, x, y):
 def count_pairs(lay: CellLayout, geom: CellGeometry):
     """Reference-convention pair count over FLUID-rooted pairs only (wall
     particles also occupy slots, so the masks alone overcount)."""
+    n_ff_directed, n_fw = pair_sums(lay, geom)
+    return (n_ff_directed / 2 + n_fw).to(torch.int32)
+
+
+def pair_sums(lay: CellLayout, geom: CellGeometry):
+    """(directed fluid-fluid pairs, fluid-wall pairs) rooted at the fluid
+    slots of ``lay`` (0-dim float tensors)."""
     S, nine_k = lay.valid_v.shape
     rm = geom.rm.reshape(S, -1, nine_k)
     fvalid = (rm > 0).to(rm.dtype)
     mask_f = fvalid * lay.isf_v[:, None, :]
     mask_w = fvalid * (1.0 - lay.isf_v[:, None, :])
     af = lay.a_fluid[:, :, None]
-    n_ff_directed = torch.sum(mask_f * af)
-    n_fw = torch.sum(mask_w * af)
-    return (n_ff_directed / 2 + n_fw).to(torch.int32)
+    return torch.sum(mask_f * af), torch.sum(mask_w * af)
 
 
 def _where(cond, a, b):
@@ -247,15 +267,62 @@ def cell_step(spec: GridSpec, lay: CellLayout, geom: CellGeometry,
     Inputs and outputs are per-particle (one packed collect); positions
     are returned pre-wrap. ``dt`` is a 0-dim tensor or a number; ``g`` and
     ``mu`` numbers or 0-dim tensors."""
-    nf = spec.n_fluid
+    core_state = _core(spec, lay.slot, (vx, vy, drho_dt))
+    vxa, vya, drho_a = _apack(core_state, 3)
+    vxv, vyv, _ = _unpack(_nview(spec, core_state), 3)
+    body = cell_step_slots(spec, lay, geom, vxa, vya, drho_a, vxv, vyv, dt,
+                           rho0, p0, c_f, inv_sigma0, transport_coeff, g,
+                           mu, wall_visc_factor)
+    per_slot = run_views([body], lambda reqs: [view_of(spec, reqs[0])])[0]
+    return collect_step(spec, lay, per_slot, x, y, vx, vy, dt)
+
+
+def view_of(spec: GridSpec, slot_arrays):
+    """Neighbor views (S, 9K) of F per-slot (S, K) arrays of the grid of
+    ``spec`` (the whole grid, or a y-slab's local spec)."""
+    F = len(slot_arrays)
+    core = torch.stack(list(slot_arrays), dim=-1).reshape(
+        spec.ny, spec.nx, spec.K * F)
+    return _unpack(_nview(spec, core), F)
+
+
+def run_views(bodies, views):
+    """Drive ``cell_step_slots`` generators in lockstep: at each point where
+    they need the neighbor views of per-slot arrays, ``views`` maps the
+    list of every body's arrays to the list of their views (the whole
+    grid's, or each y-slab's with its neighbors' band rows). Returns each
+    body's per-slot outputs."""
+    reqs = [next(b) for b in bodies]
+    while True:
+        sent = [_send(b, v) for b, v in zip(bodies, views(reqs))]
+        reqs = [v for _, v in sent]
+        if sent[0][0]:
+            return reqs
+
+
+def _send(body, value):
+    """(finished, next request or the body's result)."""
+    try:
+        return False, body.send(value)
+    except StopIteration as stop:
+        return True, stop.value
+
+
+def cell_step_slots(spec: GridSpec, lay: CellLayout, geom: CellGeometry,
+                    vxa, vya, drho_a, vxv, vyv, dt, rho0: float, p0: float,
+                    c_f: float, inv_sigma0: float, transport_coeff: float, g,
+                    mu, wall_visc_factor: float = 4.0):
+    """The per-slot work of ``cell_step`` over the cells of ``lay`` (the
+    whole grid, or a y-slab with ``spec`` its local spec), as a generator:
+    it yields the tuple of per-slot arrays whose neighbor views it needs
+    next (vol; then B, rho and p at the half step; then the kicked
+    velocities), receives those views, and returns the per-slot outputs
+    ``collect_step`` takes. ``vxa``..``drho_a`` are the slots' state,
+    ``vxv``, ``vyv`` their views."""
     h = spec.h
     af = lay.a_fluid
     pos = af > 0
     r, ex, ey, wk, dwk, m1, mw = derive_pair_terms(spec, lay, geom)
-
-    core_state = _core(spec, lay.slot, (vx, vy, drho_dt))
-    vxa, vya, drho_a = _apack(core_state, 3)
-    vxv, vyv, _ = _unpack(_nview(spec, core_state), 3)
     mass_a = lay.mass_a
 
     # ---- density summation (sph_physics_mex.c:178-234) ----
@@ -269,8 +336,7 @@ def cell_step(spec: GridSpec, lay: CellLayout, geom: CellGeometry,
     rho_a = _where(pos, rho_a, rho0)          # walls keep rho0
     vol_a = mass_a_safe / rho_a
 
-    (vol_v,) = _unpack(
-        _nview(spec, vol_a.reshape(spec.ny, spec.nx, spec.K)), 1)
+    (vol_v,) = yield (vol_a,)
     vol_vb = vol_v[:, None, :]
 
     # ---- kernel gradient correction (sph_physics_mex.c:239-365) ----
@@ -309,13 +375,7 @@ def cell_step(spec: GridSpec, lay: CellLayout, geom: CellGeometry,
     rho_half_a = _where(pos, _where(rk < 1e-10, rho0, rk), rho_a)
     p_half_a = _where(pos, p0 * (rho_half_a / rho0 - 1.0), 0.0)
 
-    def view_of(*slot_arrays):
-        F = len(slot_arrays)
-        core = torch.stack(slot_arrays, dim=-1).reshape(
-            spec.ny, spec.nx, spec.K * F)
-        return _unpack(_nview(spec, core), F)
-
-    b11_v, b12_v, b21_v, b22_v, rho_half_v, p_half_v = view_of(
+    b11_v, b12_v, b21_v, b22_v, rho_half_v, p_half_v = yield (
         b11_a, b12_a, b21_a, b22_a, rho_half_a, p_half_a)
 
     b11a = b11_a[:, :, None]
@@ -392,7 +452,7 @@ def cell_step(spec: GridSpec, lay: CellLayout, geom: CellGeometry,
     vy2_a = _where(pos, vya + (fpy_a + fy_a) * inv_m * dt, 0.0)
 
     # ---- stage-2 continuity (sph_physics_mex.c:1073-1116) ----
-    vx2_v, vy2_v = view_of(vx2_a, vy2_a)
+    vx2_v, vy2_v = yield (vx2_a, vy2_a)
     vx2c = vx2_a[:, :, None]
     vy2c = vy2_a[:, :, None]
     u_jump_f = ((vx2c - vx2_v[:, None, :]) * ex
@@ -407,17 +467,23 @@ def cell_step(spec: GridSpec, lay: CellLayout, geom: CellGeometry,
     rho_new_a = _where(pos, rho_new_a, rho_half_a)
     p_new_a = _where(pos, p0 * (rho_new_a / rho0 - 1.0), 0.0)
 
-    # ---- collect per-slot results back to particle order (one take;
-    #      the overflow sentinel is clamped, as the JAX gather clamps) ----
-    per_slot = [rho_new_a, p_new_a, drho_new_a, vx2_a, vy2_a, fx_a, fy_a,
-                fpx_a, fpy_a, vol_a, b11_a, b12_a, b21_a, b22_a,
-                dx_shift_a, dy_shift_a]
+    return [rho_new_a, p_new_a, drho_new_a, vx2_a, vy2_a, fx_a, fy_a,
+            fpx_a, fpy_a, vol_a, b11_a, b12_a, b21_a, b22_a, dx_shift_a,
+            dy_shift_a]
+
+
+def collect_step(spec: GridSpec, lay: CellLayout, per_slot, x, y, vx, vy,
+                 dt):
+    """The end of ``cell_step``: the per-slot outputs of every cell (S, K)
+    back to particle order (one take; the overflow sentinel is clamped,
+    as the JAX gather clamps) and the position update of each particle
+    (shifting + two half drifts)."""
+    nf = spec.n_fluid
     pack = torch.stack([a.reshape(-1) for a in per_slot], dim=-1)
     got = pack[torch.clamp(lay.slot, max=pack.shape[0] - 1)]
     (rho_p, p_p, drho_p, vx2_p, vy2_p, fx_p, fy_p, fpx_p, fpy_p, vol_p,
      b11_p, b12_p, b21_p, b22_p, dxs_p, dys_p) = got.unbind(dim=1)
 
-    # ---- position update per particle: shifting + two half drifts ----
     x2 = x + dxs_p + 0.5 * dt * vx + 0.5 * dt * vx2_p
     y2 = y + dys_p + 0.5 * dt * vy + 0.5 * dt * vy2_p
     fluid_mask = (torch.arange(spec.n_total, device=x.device)
@@ -439,8 +505,19 @@ def cell_wall_shear(spec: GridSpec, lay: CellLayout, geom: CellGeometry,
     formula sph_physics_mex.c:1713-1742): (tau_bottom, tau_top) as 0-dim
     tensors."""
     core = _core(spec, lay.slot, (vx, vol, b11, b12, b21, b22))
-    vxa, vol_a, b11_a, b12_a, b21_a, b22_a = _apack(core, 6)
     vol_v = _unpack(_nview(spec, core), 6)[1]
+    sb, st = shear_sums(spec, lay, geom, _apack(core, 6), vol_v, mu,
+                        wall_visc_factor)
+    return -sb / spec.DL, -st / spec.DL
+
+
+def shear_sums(spec: GridSpec, lay: CellLayout, geom: CellGeometry, slots,
+               vol_v, mu, wall_visc_factor: float = 4.0):
+    """The bottom and top sums of ``cell_wall_shear`` over the cells of
+    ``lay`` (the whole grid, or a y-slab with ``spec`` its local spec):
+    ``slots`` the slots' (vx, vol, b11, b12, b21, b22), ``vol_v`` the view
+    of vol."""
+    vxa, vol_a, b11_a, b12_a, b21_a, b22_a = slots
     r, ex, ey, _, dwk, _, mask_w = derive_pair_terms(spec, lay, geom)
     ebe = (ex * (b11_a[:, :, None] * ex + b12_a[:, :, None] * ey)
            + ey * (b21_a[:, :, None] * ex + b22_a[:, :, None] * ey))
@@ -448,6 +525,5 @@ def cell_wall_shear(spec: GridSpec, lay: CellLayout, geom: CellGeometry,
     f_pair = (wall_visc_factor * mu * ebe * dwk * vol_v[:, None, :] * dv_x
               / (r + 0.01 * spec.h)
               * vol_a[:, :, None]) * mask_w
-    tau_bottom = -torch.sum(f_pair * lay.wbot_v[:, None, :]) / spec.DL
-    tau_top = -torch.sum(f_pair * lay.wtop_v[:, None, :]) / spec.DL
-    return tau_bottom, tau_top
+    return (torch.sum(f_pair * lay.wbot_v[:, None, :]),
+            torch.sum(f_pair * lay.wtop_v[:, None, :]))

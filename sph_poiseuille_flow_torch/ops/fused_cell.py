@@ -399,14 +399,27 @@ def pair_drift_bounds(spec: GridSpec, lay: FusedLayout, x2P, y2P):
     nyp = plan(spec)[3]
     nx = spec.nx
     fl = lay.isf_c[1:nyp + 1, :, 1:nx + 1] > 0
-    occm = lay.refx_p < 0.5 * _BIG_X
+    mx, mn = drift_row_ranges(fl, lay.refx_p, lay.refy_p, x2P, y2P)
+    return drift_window_bounds(mx, mn, nx)
+
+
+def drift_row_ranges(fl, refx, refy, x2P, y2P):
+    """The per-cell halves of ``pair_drift_bounds`` on plain cores
+    (rows, K, nx) of any run of rows: (max, min) over slot rank of the
+    (x, y) drift, each (2, rows, nx), fluid slots (``fl``) by their drift,
+    wall slots as 0, empty slots (refx at the parking value) left out."""
+    occm = refx < 0.5 * _BIG_X
     big = torch.tensor(1e30, dtype=x2P.dtype, device=x2P.device)
     zero = torch.zeros((), dtype=x2P.dtype, device=x2P.device)
-    d = torch.stack([x2P - lay.refx_p, y2P - lay.refy_p])  # (2, nyp, K, nx)
+    d = torch.stack([x2P - refx, y2P - refy])  # (2, rows, K, nx)
     dmax = torch.where(fl, d, torch.where(occm, zero, -big))
     dmin = torch.where(fl, d, torch.where(occm, zero, big))
-    mx = torch.amax(dmax, dim=2)          # (2, nyp, nx) over slot rank
-    mn = torch.amin(dmin, dim=2)
+    return torch.amax(dmax, dim=2), torch.amin(dmin, dim=2)
+
+
+def drift_window_bounds(mx, mn, nx: int):
+    """(bx, by) from the whole grid's ``drift_row_ranges``: the largest
+    range over 2-row x 2-column (x-wrapped) windows."""
     mx = torch.maximum(mx[:, :-1], mx[:, 1:])     # 2-row windows
     mn = torch.minimum(mn[:, :-1], mn[:, 1:])
     if nx >= 3:
@@ -811,12 +824,14 @@ def fused_step_cores_plain(spec: GridSpec, lay: FusedLayout, xH, yH, vxH,
 def fused_step_cores(spec: GridSpec, lay: FusedLayout, xH, yH, vxH, vyH,
                      drP, dt, rho0: float, p0: float, c_f: float,
                      inv_sigma0: float, transport_coeff: float, g, mu,
-                     wall_visc_factor: float = 4.0):
+                     wall_visc_factor: float = 4.0, cache_slots: int = 0):
     """Core-level fused step (JAX ``fused_step_cores``): halo'd
     position/velocity cores + plain drho_dt core in; a dict of output
     cores (suffix H = halo'd, P = plain) + ``cnt`` (n_groups, L) out.
     CUDA tensors launch the hand-written kernel of the form ``step_form``
-    resolves, CPU tensors run the plain twin."""
+    resolves, CPU tensors run the plain twin. ``cache_slots``: the anchor
+    slots the cache kernels pick their lanes per anchor for (0: the
+    spec's; ``fused_cell_cuda._const``)."""
     _check_device(xH)
     if not xH.is_cuda:
         return fused_step_cores_plain(
@@ -825,7 +840,8 @@ def fused_step_cores(spec: GridSpec, lay: FusedLayout, xH, yH, vxH, vyH,
     o = fused_cell_cuda.step(
         spec, plan(spec)[0], lay, xH, yH, vxH, vyH, drP, dt,
         (rho0, p0, c_f, inv_sigma0, transport_coeff, g, mu,
-         wall_visc_factor), *step_form(spec, xH.dtype))
+         wall_visc_factor), *step_form(spec, xH.dtype),
+        cache_slots=cache_slots)
     o["cnt"] = _cnt_rows(spec, o["cnt"])
     return o
 
@@ -958,7 +974,7 @@ def fused_chunk_call(spec: GridSpec, lay: FusedLayout, xH, yH, vxH, vyH,
                      drP, t_local, t_comp, interval_len, n_sub,
                      rho0: float, p0: float, c_f: float, inv_sigma0: float,
                      transport_coeff: float, g, mu,
-                     wall_visc_factor: float = 4.0):
+                     wall_visc_factor: float = 4.0, cache_slots: int = 0):
     """Run up to ``n_sub`` steps in one call (JAX ``fused_chunk_call``).
     Returns (state_cores_dict, aux_outs_dict, steps_done, t_new,
     t_comp_new), the last three as 0-dim tensors on the input's device.
@@ -966,7 +982,8 @@ def fused_chunk_call(spec: GridSpec, lay: FusedLayout, xH, yH, vxH, vyH,
     ``pair_drift_bounds`` on the returned position cores. The inputs are
     left intact. CUDA tensors launch the hand-written kernels (no host
     sync inside the chunk) in the form ``chunk_form`` resolves, CPU
-    tensors run the plain twin."""
+    tensors run the plain twin. ``cache_slots``: as in
+    ``fused_step_cores``."""
     _check_device(xH)
     if not xH.is_cuda:
         return fused_chunk_call_plain(
@@ -980,7 +997,8 @@ def fused_chunk_call(spec: GridSpec, lay: FusedLayout, xH, yH, vxH, vyH,
         spec, plan(spec)[0], lay, xH, yH, vxH, vyH, drP, t_local, t_comp,
         interval_len, n_sub, dt_visc, dt_body,
         (rho0, p0, c_f, inv_sigma0, transport_coeff, g, mu,
-         wall_visc_factor), *chunk_form(spec, xH.dtype))
+         wall_visc_factor), *chunk_form(spec, xH.dtype),
+        cache_slots=cache_slots)
     st, aux = _chunk_result(*work, o, spec)
     return st, aux, steps, t, tc
 

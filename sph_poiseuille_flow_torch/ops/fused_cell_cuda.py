@@ -228,16 +228,21 @@ def rows_tile(K: int, n_slots: int, nx: int) -> tuple:
 
 
 def _const(spec, R: int, rho0, p0, c_f, inv_sigma0, transport_coeff,
-           kcut: int = 0, rows: bool = False):
+           kcut: int = 0, rows: bool = False, cache_slots: int = 0):
     """Kernel constants, each rounded once from float64 as the JAX
     package's weakly-typed Python scalars are. ``kcut``: cached anchor
     ranks of the geometry-cache form; ``rows``: the rows form's tile
-    (``rows_tile``) is set, else left 0."""
+    (``rows_tile``) is set, else left 0. The cache form's lanes per anchor
+    are picked for ``cache_slots`` anchor slots (0: the spec's own), since
+    its per-anchor sums add in an order that depends on them: a y-slab
+    passes the whole domain's count, so its sums add as one device's do.
+    The recompute and rows forms add in window order for any lane
+    count."""
     h = spec.h
     sigma = sigma_2d(h)
     soh = sigma / h
     nyp = _shapes(spec, R)[2]
-    cg0, cg = cache_groups(nyp * spec.K * spec.nx)
+    cg0, cg = cache_groups(cache_slots or nyp * spec.K * spec.nx)
     if cg0 not in CACHE_GROUPS0 or cg not in CACHE_GROUPS:
         raise ValueError(f"lanes per anchor ({cg0}, {cg}) not in "
                          f"{CACHE_GROUPS0} x {CACHE_GROUPS}")
@@ -381,7 +386,7 @@ def _cache_bufs(spec, R: int, kcut: int, dev):
 
 
 def _step_setup(spec, R: int, lay, xH, yH, vxH, vyH, drP, dt, scalars,
-                form: str, k_cut: int):
+                form: str, k_cut: int, cache_slots: int = 0):
     """What a step call sets up before its launches: the form, the
     library, the [dt, g, mu, wf, active] copy, the checked inputs with
     zeroed outputs and scratch, the cache and the constants. Returns
@@ -397,17 +402,18 @@ def _step_setup(spec, R: int, lay, xH, yH, vxH, vyH, drP, dt, scalars,
     bufs, out = _step_bufs(spec, R, lay, xH, yH, vxH, vyH, drP, dyn)
     cache, keep = _cache_bufs(spec, R, kcut, dev)
     c = _const(spec, R, rho0, p0, c_f, inv_sigma0, transport_coeff, kcut,
-               rows=kform == 2)
+               rows=kform == 2, cache_slots=cache_slots)
     return lib, kform, c, bufs, out, dyn, cache, keep
 
 
 def step(spec, R: int, lay, xH, yH, vxH, vyH, drP, dt, scalars,
-         form: str = "none", k_cut: int = 0):
+         form: str = "none", k_cut: int = 0, cache_slots: int = 0):
     """One fused step (the JAX _step_kernel) in ``form``: four sweep
     launches. Returns the output cores with ``cnt`` per slot
-    (nyp, K, nx)."""
+    (nyp, K, nx). ``cache_slots``: see ``_const``."""
     lib, kform, c, bufs, out, dyn, cache, keep = _step_setup(
-        spec, R, lay, xH, yH, vxH, vyH, drP, dt, scalars, form, k_cut)
+        spec, R, lay, xH, yH, vxH, vyH, drP, dt, scalars, form, k_cut,
+        cache_slots)
     dev = xH.device
     with torch.cuda.device(dev):
         _raise_on(lib.sph_step(ctypes.addressof(c), ctypes.addressof(bufs),
@@ -513,7 +519,7 @@ def expand(v: torch.Tensor, K: int) -> torch.Tensor:
 
 def chunk(spec, R: int, lay, xH, yH, vxH, vyH, drP, t_local, t_comp,
           interval_len, n_sub, dt_visc, dt_body, scalars, form: str = "none",
-          k_cut: int = 0):
+          k_cut: int = 0, cache_slots: int = 0):
     """Up to ``n_sub`` steps (the JAX _chunk_kernel) in ``form`` with no
     host sync: a v_max reduction over the input velocity cores, then per
     step a control launch (dt, active flag, Kahan clock on device), four
@@ -521,7 +527,7 @@ def chunk(spec, R: int, lay, xH, yH, vxH, vyH, drP, t_local, t_comp,
     inputs are copied into the working state first, so they stay intact.
     Returns ((xH, yH, vxH, vyH, drP) working state, output cores, steps,
     t, t_comp, v_max^2 over the final working velocity cores), the last
-    four as 0-dim device tensors."""
+    four as 0-dim device tensors. ``cache_slots``: see ``_const``."""
     (rho0, p0, c_f, inv_sigma0, transport_coeff, g, mu, wf) = scalars
     kform, kcut = _form(form, k_cut, spec.K)
     lib = _load()
@@ -536,7 +542,7 @@ def chunk(spec, R: int, lay, xH, yH, vxH, vyH, drP, t_local, t_comp,
     vmax2 = torch.zeros(1, dtype=torch.int32, device=dev)
     cache, keep = _cache_bufs(spec, R, kcut, dev)
     c = _const(spec, R, rho0, p0, c_f, inv_sigma0, transport_coeff, kcut,
-               rows=kform == 2)
+               rows=kform == 2, cache_slots=cache_slots)
     with torch.cuda.device(dev):
         _raise_on(lib.sph_chunk(ctypes.addressof(c), ctypes.addressof(bufs),
                                 ctypes.addressof(cache), kform,

@@ -1,7 +1,11 @@
-"""(g, mu) workload sweeps (torch port of the JAX package's
-``parallel/sweep.py``). The multi-device names of the JAX package's
-``parallel`` come with its y-slab decomposition."""
+"""(g, mu) workload sweeps and the multi-device decomposition (torch port
+of the JAX package's ``parallel``)."""
 
+from .sharding import (AXIS, ShardedCellEngine, ShardedEngine,
+                       ShardedPallasEngine, make_mesh)
 from .sweep import make_workloads, run_sweep
+from .virtual import ensure_devices
 
-__all__ = ["make_workloads", "run_sweep"]
+__all__ = ["AXIS", "ShardedCellEngine", "ShardedEngine",
+           "ShardedPallasEngine", "ensure_devices", "make_mesh",
+           "make_workloads", "run_sweep"]

@@ -27,11 +27,6 @@ from .config import ConfigError, env_override, load_config
 from .simulation import Simulation, SimulationPaths
 
 
-def _not_ported(flag: str, item: str):
-    raise NotImplementedError(f"{flag} is not yet ported to the PyTorch "
-                              f"package ({item})")
-
-
 def main(argv=None) -> int:
     parser = argparse.ArgumentParser(
         prog="sph_poiseuille_flow_torch",
@@ -134,11 +129,14 @@ def main(argv=None) -> int:
                              "ignored on the fused engine, whose lanes run "
                              "one at a time")
     parser.add_argument("--mesh", type=int, default=None, metavar="N",
-                        help="not yet ported (raises)")
+                        help="run the whole pipeline over an N-slab mesh "
+                             "(y-slabs of the fused or cell-layout engine, "
+                             "neighbor-row blocks of the gather engine) in "
+                             "one process: slab i on cuda:i where N cards "
+                             "exist, else every slab on cuda:0 (with "
+                             "SPH_DRYRUN_REAL_DEVICES set: a raise); N "
+                             "CPU slabs with --device cpu")
     args = parser.parse_args(argv)
-
-    if args.mesh is not None:
-        _not_ported("--mesh", "ROADMAP.md queue 1 item 6")
 
     if args.postprocess_only:
         from .utils.postprocess import postprocess_file
@@ -197,7 +195,8 @@ def main(argv=None) -> int:
     else:
         capture = contextlib.nullcontext()
     with capture:
-        result = Simulation(cfg, paths, device=args.device).run()
+        result = Simulation(cfg, paths, device=args.device,
+                            mesh_devices=args.mesh).run()
     print(f"throughput: {result['particle_steps_per_sec']:.3e} "
           f"particle-steps/sec over {result['step']} steps")
     print(f"host syncs: {result['host_syncs']} over "

@@ -62,16 +62,23 @@ def _host(a) -> np.ndarray:
 
 class Simulation:
     """End-to-end run: init/restart -> interval loop -> postprocess, on
-    one explicit device."""
+    one explicit device, or with ``mesh_devices`` = N on an N-slab mesh
+    of that device type (``parallel.ShardedPallasEngine`` and its
+    siblings; N = 1 still runs the sharded engine)."""
 
     def __init__(self, cfg: SPHConfig, paths: Optional[SimulationPaths] = None,
-                 log: Callable[[str], None] = print, device="cuda"):
+                 log: Callable[[str], None] = print, device="cuda",
+                 mesh_devices: Optional[int] = None):
         self.cfg = cfg
         self.paths = paths or SimulationPaths()
         self.log = log
         self.device = torch.device(device)
         self.scene: Scene = build_scene(cfg)
-        self.engine = make_engine(cfg, self.scene, self.device)
+        if mesh_devices is not None and mesh_devices >= 1:
+            self.engine = self._make_sharded_engine(mesh_devices)
+            self.device = self.engine.device
+        else:
+            self.engine = make_engine(cfg, self.scene, self.device)
         self.t = 0.0
         self.step = 0
         self.profile_times: List[float] = []
@@ -82,6 +89,29 @@ class Simulation:
         self.wall_time_in_loop = 0.0
         self.total_steps_run = 0
         self.host_syncs = 0
+
+    def _make_sharded_engine(self, n_devices: int):
+        """The sharded engine of ``--mesh N`` (JAX simulation.py:87-105):
+        the resolved engine name picks the decomposition (pallas and
+        cellgrid: y-slabs; gather: neighbor-row blocks)."""
+        from .parallel import (ShardedCellEngine, ShardedEngine,
+                               ShardedPallasEngine, make_mesh)
+        from .stepper import resolve_engine_name
+        name = resolve_engine_name(self.cfg)
+        mesh = make_mesh(n_devices, device=self.device.type)
+        cls = {"pallas": ShardedPallasEngine,
+               "cellgrid": ShardedCellEngine,
+               "gather": ShardedEngine}[name]
+        where = (f"virtual: {n_devices} slabs on {mesh.devices[0]}"
+                 if mesh.virtual and n_devices > 1 else
+                 ", ".join(str(d) for d in mesh.devices))
+        self.log(f"mesh: {n_devices} devices ({where}), engine={name} "
+                 f"(y-slab sharded)" if name != "gather" else
+                 f"mesh: {n_devices} devices ({where}), engine=gather "
+                 f"(row-sharded)")
+        cfg = (self.cfg if name == self.cfg.engine
+               else dataclasses.replace(self.cfg, engine=name))
+        return cls(cfg, self.scene, mesh)
 
     # ---- monitors ----
     def _sample_mid_profile(self, state: State):
@@ -141,6 +171,11 @@ class Simulation:
         rollback chunk length across calls). With the step log on, only
         the last call's rows are drained, as in the JAX package."""
         msd = int(getattr(self.cfg, "max_steps_per_dispatch", 0) or 0)
+        if msd > 0 and getattr(self.engine, "mesh", None) is not None:
+            raise RuntimeError(
+                "max_steps_per_dispatch is a single-device scale lever "
+                "(the sharded engines already bound per-dispatch work "
+                "by the slab decomposition); run without --mesh")
         if msd <= 0:
             res = self.engine.run_interval(
                 state, cands, geom, fdtype.type(interval),

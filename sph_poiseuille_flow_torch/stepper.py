@@ -183,11 +183,12 @@ class _PerStepEngine:
     ``_rebuild``, ``_drift_over``, ``_geometry``, ``final_shear`` and
     ``_count_pairs``."""
 
-    def __init__(self, cfg: SPHConfig, scene: Scene, device):
+    def __init__(self, cfg: SPHConfig, scene: Scene, device,
+                 s_multiple: int = 1):
         self.device = torch.device(device)
         self.cfg = cfg
         self.scene = scene
-        self.spec = nbr.make_grid_spec(cfg, scene)
+        self.spec = nbr.make_grid_spec(cfg, scene, s_multiple=s_multiple)
         dtype = getattr(torch, cfg.dtype)
         self.dtype = dtype
         self._mass = torch.as_tensor(scene.mass, dtype=dtype,
@@ -408,10 +409,13 @@ class CellEngine(_PerStepEngine):
 
     API as the fused engine's: ``init(state) -> (state, layout, geometry,
     overflow)``, ``step`` and ``run_interval(state, layout, geometry,
-    interval_len, ...) -> IntervalResult``."""
+    interval_len, ...) -> IntervalResult``. ``s_multiple`` pads the cell
+    rows so that S = ny*nx divides by it (the grid of the y-slab engine,
+    ``parallel.ShardedCellEngine``)."""
 
-    def __init__(self, cfg: SPHConfig, scene: Scene, device):
-        super().__init__(cfg, scene, device)
+    def __init__(self, cfg: SPHConfig, scene: Scene, device,
+                 s_multiple: int = 1):
+        super().__init__(cfg, scene, device, s_multiple=s_multiple)
         self._wall_y = torch.as_tensor(scene.y, dtype=self.dtype,
                                        device=self.device)
 
@@ -435,11 +439,8 @@ class CellEngine(_PerStepEngine):
         nf = spec.n_fluid
         dt = verlet_dt(state.vx[:nf], state.vy[:nf], cfg.c_f, cfg.h,
                        mu / cfg.rho0, g, remain)
-        out = cg.cell_step(
-            spec, lay, geom, self._mass, state.x, state.y, state.vx,
-            state.vy, state.drho_dt, dt, cfg.rho0, cfg.p0, cfg.c_f,
-            cfg.inv_sigma0, cfg.transport_coeff, g, mu,
-            cfg.wall_visc_factor)
+        out = self._cell_step(lay, geom, state, dt, cfg.transport_coeff, g,
+                              mu)
         new_state = State(
             x=periodic_wrap(spec, out["x"]), y=out["y"], vx=out["vx"],
             vy=out["vy"], rho=out["rho"], p=out["p"],
@@ -449,20 +450,28 @@ class CellEngine(_PerStepEngine):
             b22=out["b22"])
         return new_state, dt
 
+    def _cell_step(self, lay, geom, state: State, dt, transport_coeff, g,
+                   mu):
+        """The cell step of ``state`` (``ops/cellgrid.cell_step``); the
+        y-slab engine runs it slab by slab."""
+        cfg = self.cfg
+        return cg.cell_step(
+            self.spec, lay, geom, self._mass, state.x, state.y, state.vx,
+            state.vy, state.drho_dt, dt, cfg.rho0, cfg.p0, cfg.c_f,
+            cfg.inv_sigma0, transport_coeff, g, mu, cfg.wall_visc_factor)
+
     def init(self, state: State):
         """Initial layout + density/KGC/EOS pass (SPH_Poiseuille.m:165-173):
         a zero-dt, zero-shift cell step whose kinematic outputs are
         identities. ``drho_dt`` is kept (it carries across a restart into
         the first half-kick)."""
-        cfg, spec = self.cfg, self.spec
+        cfg = self.cfg
         lay = self._rebuild(state.x, state.y)
-        geom = cg.compute_geometry(spec, lay, state.x, state.y)
-        out = cg.cell_step(
-            spec, lay, geom, self._mass, state.x, state.y, state.vx,
-            state.vy, state.drho_dt,
-            torch.zeros((), dtype=self.dtype, device=self.device), cfg.rho0,
-            cfg.p0, cfg.c_f, cfg.inv_sigma0, 0.0, cfg.gravity_g, cfg.mu,
-            cfg.wall_visc_factor)
+        geom = self._geometry(lay, state)
+        out = self._cell_step(
+            lay, geom, state,
+            torch.zeros((), dtype=self.dtype, device=self.device), 0.0,
+            cfg.gravity_g, cfg.mu)
         state = state._replace(
             rho=out["rho"], p=out["p"], vol=out["vol"], b11=out["b11"],
             b12=out["b12"], b21=out["b21"], b22=out["b22"])
@@ -595,6 +604,43 @@ class Engine(_PerStepEngine):
                           cfg.DL, mu, cfg.h, cfg.wall_visc_factor)
 
 
+class SubChunkRun:
+    """A group's sub-chunk runner (``PallasCellEngine._run_group``): a
+    call runs up to ``n_sub`` steps from the kept state and returns (what
+    it reached, steps, t, t_comp, host syncs); ``keep`` makes the last
+    call's state the kept one, ``state`` returns the kept state."""
+
+    def __init__(self, cur):
+        self.cur, self.new = cur, None
+
+    def keep(self):
+        self.cur = self.new
+
+    def state(self):
+        return self.cur
+
+
+class ChunkRun(SubChunkRun):
+    """The chunk kernel over ``lay``'s cores from the kept carry (xH, yH,
+    vxH, vyH, drP and the aux cores); a call returns the chunk's state
+    cores, whose xP/yP the drift bounds read."""
+
+    def __init__(self, spec, lay, carry, interval, scalars,
+                 cache_slots: int = 0):
+        super().__init__(carry)
+        self.spec, self.lay, self.interval = spec, lay, interval
+        self.scalars, self.cache_slots = scalars, cache_slots
+
+    def __call__(self, n_sub, t_i, tc_i):
+        c = self.cur
+        st2, aux2, steps, t2, tc2 = pc.fused_chunk_call(
+            self.spec, self.lay, c["xH"], c["yH"], c["vxH"], c["vyH"],
+            c["drP"], t_i, tc_i, self.interval, n_sub, *self.scalars,
+            cache_slots=self.cache_slots)
+        self.new = dict(st2, **aux2)
+        return st2, steps, t2, tc2, 0
+
+
 class PallasCellEngine:
     """The fused cell-layout engine (the JAX package's flagship): every
     physics step runs through the three fused kernels of
@@ -637,16 +683,27 @@ class PallasCellEngine:
         self._shear = lay.shear_rows, lay.shear_tbt
         return out
 
+    def _fused_cell_step(self, lay, x, y, vx, vy, drho_dt, dt, g, mu,
+                         transport_coeff=None):
+        """The one fused step of init and of the per-step path (JAX
+        ``PallasCellEngine._fused_cell_step``); the y-slab engine
+        (``parallel.ShardedPallasEngine``) runs it slab by slab."""
+        cfg = self.cfg
+        tc = (cfg.transport_coeff if transport_coeff is None
+              else transport_coeff)
+        return pc.fused_cell_step(
+            self.spec, lay, x, y, vx, vy, drho_dt, dt, cfg.rho0, cfg.p0,
+            cfg.c_f, cfg.inv_sigma0, tc, g, mu, cfg.wall_visc_factor)
+
     def init(self, state: State):
         """Initial layout + one fused step with dt=0 and no shifting
         (SPH_Poiseuille.m:165-173): rho, p, vol and B. drho_dt is kept
         (it carries across a restart into the first half-kick)."""
         cfg = self.cfg
         lay = self._rebuild(state.x, state.y)
-        out = pc.fused_cell_step(
-            self.spec, lay, state.x, state.y, state.vx, state.vy,
-            state.drho_dt, 0.0, cfg.rho0, cfg.p0, cfg.c_f, cfg.inv_sigma0,
-            0.0, cfg.gravity_g, cfg.mu, cfg.wall_visc_factor)
+        out = self._fused_cell_step(
+            lay, state.x, state.y, state.vx, state.vy, state.drho_dt, 0.0,
+            cfg.gravity_g, cfg.mu, transport_coeff=0.0)
         state = state._replace(
             rho=out["rho"], p=out["p"], vol=out["vol"], b11=out["b11"],
             b12=out["b12"], b21=out["b21"], b22=out["b22"])
@@ -719,10 +776,8 @@ class PallasCellEngine:
         nf = spec.n_fluid
         dt = verlet_dt(state.vx[:nf], state.vy[:nf], cfg.c_f, cfg.h,
                        mu / cfg.rho0, g, remain)
-        out = pc.fused_cell_step(
-            spec, lay, state.x, state.y, state.vx, state.vy,
-            state.drho_dt, dt, cfg.rho0, cfg.p0, cfg.c_f, cfg.inv_sigma0,
-            cfg.transport_coeff, g, mu, cfg.wall_visc_factor)
+        out = self._fused_cell_step(lay, state.x, state.y, state.vx,
+                                    state.vy, state.drho_dt, dt, g, mu)
         x, y = out["x"], out["y"]
         rb_eff = min(cfg.rebuild_every, 8)
         if rb_eff <= 1 or step_idx % rb_eff == 0:
@@ -792,6 +847,79 @@ class PallasCellEngine:
             t_local=t_local, t_comp=t_comp, n_syncs=n_syncs + 1,
             step_log=logbuf, step_log_n=logn)
 
+    @property
+    def _np_dtype(self):
+        return np.float32 if self.dtype == torch.float32 else np.float64
+
+    def _group_lengths(self):
+        """(steps of a group = rebuild_every, the longest sub-chunk)."""
+        rb = max(1, int(self.cfg.rebuild_every))
+        return rb, min(rb, int(os.environ.get("SPH_SUB_STEPS", "")
+                               or getattr(self.cfg, "sub_steps", 16)))
+
+    def _run_group(self, run, bounds, interval, t_i, tc_i, sub_len, rb,
+                   sub_max):
+        """One sub-chunk group of the chunk design (the JAX loop over
+        ``sub_cond``/``sub_body``, stepper.py:834-945), which the y-slab
+        engine shares. ``run(n_sub, t, t_comp)
+        -> (new, steps, t, t_comp, host syncs)`` runs up to n_sub steps
+        from its kept state; ``bounds(new)`` gives the (bx, by) drift
+        bounds of what it returned (``None``: no skin). After each
+        sub-chunk one host sync reads the bounds and the clock in the
+        engine's float type: a genuine crossing rolls the sub-chunk back
+        (not kept; the next is half as long), the predictive stop (1.5x the
+        last increment) and the 3/4-consumed floor end the group before
+        one; else ``run.keep()``. The group also ends at ``rb`` steps or
+        the output point. Returns (t, t_comp, steps, rollbacks, the next
+        group's sub-chunk length, an unrecoverable trip, host syncs)."""
+        f = self._np_dtype
+        dev = self.device
+        predict = os.environ.get("SPH_DRIFT_PREDICTOR", "1") != "0"
+        sxb, syb = f(self.spec.skin_x), f(self.spec.skin_y)
+        done_i, nrb, n_syncs, slen = 0, 0, 0, sub_len
+        soft = guard = False
+        bp = (f(0.0), f(0.0))
+        zero = torch.zeros((), dtype=self.dtype, device=dev)
+        while not soft and done_i < rb and t_i < interval:
+            n_sub = min(slen, rb - done_i)
+            new, steps_t, t2_t, tc2_t, syncs = run(n_sub, t_i, tc_i)
+            n_syncs += syncs
+            bx_t, by_t = (zero, zero) if bounds is None else bounds(new)
+            # the one host sync of the sub-chunk
+            vals = torch.stack([bx_t, by_t, t2_t.to(dev), tc2_t.to(dev),
+                                steps_t.to(dev, self.dtype)]).tolist()
+            n_syncs += 1
+            bx, by, t2, tc2 = (f(v) for v in vals[:4])
+            if bounds is not None:
+                # a genuine crossing rolls the sub-chunk back; the
+                # PREDICTIVE stop (1.5x the last increment) and the
+                # 3/4-consumed floor schedule rebuilds before that
+                trip = bx > sxb or by > syb
+                if predict:
+                    soft2 = bool(
+                        bx + f(1.5) * (bx - bp[0]) > sxb
+                        or by + f(1.5) * (by - bp[1]) > syb
+                        or bx > f(0.75) * sxb or by > f(0.75) * syb)
+                else:
+                    soft2 = bool(trip)
+            else:
+                soft2, trip = True, False
+            unrecoverable = n_sub == 1 and done_i == 0
+            recov = bool(trip) and not unrecoverable
+            guard = guard or (bool(trip) and unrecoverable)
+            if recov:
+                slen = max(n_sub // 2, 1)
+            else:
+                run.keep()
+                t_i, tc_i = t2, tc2
+                done_i += int(vals[4])
+            soft = soft2 or recov
+            bp = (bx, by)
+            nrb += int(recov)
+        # a trip-free group earns the next group a doubled sub-chunk
+        sub_len = min(2 * slen, sub_max) if nrb == 0 else slen
+        return t_i, tc_i, done_i, nrb, sub_len, guard, n_syncs
+
     def run_interval(self, state: State, lay, geom, interval_len,
                      g=None, mu=None, max_steps=None, t_local0=None,
                      t_comp0=None, sub_len0=None, t_base=None,
@@ -813,15 +941,11 @@ class PallasCellEngine:
             return self._run_interval_steps(
                 state, lay, geom, interval_len, g, mu, max_steps, t_local0,
                 t_comp0, t_base, step_base, steps_done0)
-        f = np.float32 if self.dtype == torch.float32 else np.float64
+        f = self._np_dtype
         scalars = (cfg.rho0, cfg.p0, cfg.c_f, cfg.inv_sigma0,
                    cfg.transport_coeff, g, mu, cfg.wall_visc_factor)
         interval = f(interval_len)
-        rb = max(1, int(cfg.rebuild_every))
-        sub_max = min(rb, int(os.environ.get("SPH_SUB_STEPS", "")
-                              or getattr(cfg, "sub_steps", 16)))
-        predict = os.environ.get("SPH_DRIFT_PREDICTOR", "1") != "0"
-        sxb, syb = f(spec.skin_x), f(spec.skin_y)
+        rb, sub_max = self._group_lengths()
         R, L, n_groups, nyp = pc.plan(spec)
 
         t_local = f(0.0) if t_local0 is None else f(t_local0)
@@ -841,54 +965,18 @@ class PallasCellEngine:
                       yP=cores["yH"][1:-1, :, 1:-1],
                       cnt=torch.zeros((n_groups, L), dtype=self.dtype,
                                       device=self.device))
-            t_i, tc_i = t_local, t_comp
-            done_i, soft, nrb, slen = 0, False, 0, sub_len
-            bp = (f(0.0), f(0.0))
-            while not soft and done_i < rb and t_i < interval:
-                n_sub = min(slen, rb - done_i)
-                st2, aux2, steps_t, t2_t, tc2_t = pc.fused_chunk_call(
-                    spec, lay, st["xH"], st["yH"], st["vxH"], st["vyH"],
-                    st["drP"], t_i, tc_i, interval, n_sub, *scalars)
-                if spec.skin > 0.0:
-                    bx_t, by_t = pc.pair_drift_bounds(spec, lay, st2["xP"],
-                                                      st2["yP"])
-                else:
-                    bx_t = by_t = torch.zeros((), dtype=self.dtype,
-                                              device=self.device)
-                # the one host sync of the sub-chunk
-                vals = torch.stack([bx_t, by_t, t2_t, tc2_t,
-                                    steps_t.to(self.dtype)]).tolist()
-                n_syncs += 1
-                bx, by, t2, tc2 = (f(v) for v in vals[:4])
-                steps_done = int(vals[4])
-                if spec.skin > 0.0:
-                    # a genuine crossing rolls the sub-chunk back; the
-                    # PREDICTIVE stop (1.5x the last increment) and the
-                    # 3/4-consumed floor schedule rebuilds before that
-                    trip = bx > sxb or by > syb
-                    if predict:
-                        soft2 = bool(
-                            bx + f(1.5) * (bx - bp[0]) > sxb
-                            or by + f(1.5) * (by - bp[1]) > syb
-                            or bx > f(0.75) * sxb or by > f(0.75) * syb)
-                    else:
-                        soft2 = bool(trip)
-                else:
-                    soft2, trip = True, False
-                unrecoverable = n_sub == 1 and done_i == 0
-                recov = bool(trip) and not unrecoverable
-                guard = guard or (bool(trip) and unrecoverable)
-                if recov:
-                    slen = max(n_sub // 2, 1)
-                else:
-                    st = dict(st2, **aux2)
-                    t_i, tc_i = t2, tc2
-                    done_i += steps_done
-                soft = soft2 or recov
-                bp = (bx, by)
-                nrb += int(recov)
-            # a trip-free group earns the next group a doubled sub-chunk
-            sub_len = min(2 * slen, sub_max) if nrb == 0 else slen
+            run = ChunkRun(spec, lay, st, interval, scalars)
+
+            def bounds(new, lay=lay):
+                return pc.pair_drift_bounds(spec, lay, new["xP"], new["yP"])
+
+            (t_local, t_comp, done_i, nrb, sub_len, trip,
+             syncs) = self._run_group(
+                 run, bounds if spec.skin > 0.0 else None, interval,
+                 t_local, t_comp, sub_len, rb, sub_max)
+            guard = guard or trip
+            n_syncs += syncs
+            st = run.state()
 
             new_lay, rebuilt = self._do_rebuild(lay, st)
             cores = dict(rebuilt, **{k: st[k] for k in (
@@ -897,7 +985,6 @@ class PallasCellEngine:
             npairs = torch.round(torch.sum(st["cnt"])).to(torch.int32)
             pidx_e, hidx_e = lay.pidx, lay.hidx
             lay = new_lay
-            t_local, t_comp = t_i, tc_i
             n_steps += done_i
             overflow = torch.logical_or(overflow, new_lay.overflow)
             n_roll += nrb

@@ -1,8 +1,8 @@
 """The port's command line end to end on a tiny ini with ``--device cpu``,
 its five ``SPH_*_OVERRIDE`` environment variables, ``--profile``, the
-kernel-form flags and ``--step-log-every``, the (g, mu) sweep flags, the
-flag that is not ported yet, and the rule that the package never imports
-jax."""
+kernel-form flags and ``--step-log-every``, the (g, mu) sweep flags, and
+the rule that the package never imports jax (``--mesh``:
+test_torch_mesh_cli.py)."""
 
 import importlib.util
 import json
@@ -121,12 +121,6 @@ def test_postprocess_only(cli_run, capsys):
     rc = cli.main(["--postprocess-only", str(d / "o" / "post.npz")])
     assert "L2 relative error" in capsys.readouterr().out
     assert rc == 1
-
-
-@pytest.mark.parametrize("flag", [["--mesh", "2"]])
-def test_unported_flags_raise(flag):
-    with pytest.raises(NotImplementedError, match="not yet ported"):
-        cli.main(["--device", "cpu"] + flag)
 
 
 SWEEP_INI = TINY_INI.replace("end_time = 0.1\noutput_interval = 0.05",
