@@ -133,6 +133,19 @@ Phases, each of which exits non-zero on failure before the last line:
 8. where cmake exists: the gather engine's operators in float64 on the
    card against the native C++ oracle (``utils/native_oracle.py``) within
    1e-9 of each output's scale; where it does not, a line says so.
+9. the chunk path on persistent buffers (``fused_cell.ChunkRunner``,
+   ``sph_chunk_run``) at the benchmark's two grids (its configurations
+   ``channel-dp0.01`` and ``channel-dp0.005``, their developed state from
+   a fixed seed): (i) three 128-step groups of an interval
+   (``max_steps``) with the shipping knobs, and with the predictor off
+   and a skin of 0.1 dp, which forces rollbacks, each bit-equal to the
+   stateless path (``chunk_buffers`` off: ``fused_chunk_call`` and the
+   stacked read) in steps, rollbacks, syncs, the clock, every ``State``
+   field, tau, v_max and pairs, with the same ``LAUNCHES``; (ii) the
+   drift kernel against ``pair_drift_bounds`` bit for bit (or both NaN)
+   after a 4-step run: on the layout's references, on references with an
+   all-empty 2 x 2 block of cells, and with a NaN velocity in one fluid
+   slot (a NaN position); ``CHUNK_BUFFERS`` printed.
 
 Prints the card's name and power limit, a ``{"kernels": [...]}`` line
 (each kernel with its time, its plain version's and the least time the
@@ -1278,6 +1291,169 @@ SWEEP_EQUAL = (2, 6)   # mu = 0.1 (config's) and 0.25
 BATCH_MUS = (0.05, 0.1, 0.2, 0.3)
 
 
+# phase 9: three rebuild groups of 128 steps
+RUNNER_STEPS = 384
+
+
+def _developed(conf_name: str, device):
+    """The benchmark's developed state of one of its configurations (its
+    traffic file's jitter, a fixed seed): (config, scene, state)."""
+    from benchmark import traffic
+    from benchmark.drivers.developed import port_config
+    from benchmark.reference.sph import Channel
+    from sph_poiseuille_flow_torch.models.poiseuille import build_scene
+    from sph_poiseuille_flow_torch.stepper import initial_state
+
+    bench = os.path.join(ROOT, "benchmark")
+    with open(os.path.join(bench, "configs", conf_name + ".json")) as f:
+        conf = json.load(f)
+    with open(os.path.join(bench, "workloads",
+                           conf_name + ".developed.json")) as f:
+        wl = json.load(f)
+    cfg = port_config(conf, wl)
+    scene = build_scene(cfg)
+    inp = traffic.developed_state(Channel.from_physics(conf["physical"]),
+                                  wl["state"], 2 ** 31 + 11, device)
+    s0 = initial_state(cfg, scene, device)._replace(
+        **{k: inp[k].float() for k in ("x", "y", "vx", "vy", "rho",
+                                       "drho_dt")})
+    return cfg, scene, s0
+
+
+def _same_interval(what: str, r1, r2) -> None:
+    """``r2`` equal to ``r1`` bit for bit, or raise naming what differs."""
+    import torch
+    from sph_poiseuille_flow_torch.stepper import State
+    bad = [k for k in ("n_steps", "n_rollbacks", "n_syncs", "sub_len",
+                       "skin_guard", "t_local", "t_comp")
+           if getattr(r1, k) != getattr(r2, k)]
+    bad += [k for k in State._fields
+            if not torch.equal(getattr(r1.state, k), getattr(r2.state, k))]
+    bad += [k for k in ("tau_bottom", "tau_top", "v_max", "n_pairs",
+                        "overflow")
+            if not torch.equal(getattr(r1, k), getattr(r2, k))]
+    if bad:
+        raise AssertionError(f"{what}: the buffered chunk path differs "
+                             f"from the stateless one in {bad}")
+
+
+def _drift_bits(v) -> str:
+    import numpy as np
+    v = np.float32(float(v))
+    return f"{v:.6e} ({v.view(np.uint32):#010x})"
+
+
+def _runner_drift(device, label: str, cfg, scene, s0) -> None:
+    """The drift kernel against ``pair_drift_bounds`` after a 4-step run
+    through the runner: on the layout's references, on references with an
+    all-empty 2 x 2 block of cells (parked, not fluid) and with a NaN
+    velocity in one fluid slot, whose position the chunk makes NaN."""
+    import math
+    import numpy as np
+    import torch
+    from sph_poiseuille_flow_torch.ops import fused_cell as fc
+    from sph_poiseuille_flow_torch.stepper import PallasCellEngine
+
+    eng = PallasCellEngine(cfg, scene, device)
+    s, lay, _, _ = eng.init(s0)
+    spec = eng.spec
+    cores = eng._scatter_all(lay, s)
+    nyp, K, nx = lay.refx_p.shape
+    refx, refy = lay.refx_p.clone(), lay.refy_p.clone()
+    isf = lay.isf_c[1:nyp + 1, :, 1:nx + 1].contiguous()
+    r0, c0 = nyp // 2, nx // 2
+    refx[r0:r0 + 2, :, c0:c0 + 2] = fc._BIG_X
+    isf[r0:r0 + 2, :, c0:c0 + 2] = 0.0
+    vx_nan = cores["vxH"].clone()
+    fluid = torch.nonzero(lay.isf_c.reshape(-1) > 0)[len(s0.x) // 4]
+    vx_nan.view(-1)[fluid] = float("nan")
+    own = fc.DriftRef(lay.refx_p, lay.refy_p, lay.isf_c)
+    emptied = fc.DriftRef(refx, refy, isf, False)
+    scalars = (cfg.rho0, cfg.p0, cfg.c_f, cfg.inv_sigma0,
+               cfg.transport_coeff, cfg.gravity_g, cfg.mu,
+               cfg.wall_visc_factor)
+    runner = fc.ChunkRunner()
+    for case, drift, vxH in (("layout", own, cores["vxH"]),
+                             ("empty 2x2 block", emptied, cores["vxH"]),
+                             ("NaN position", own, vx_nan)):
+        run = runner.group(spec, lay, dict(cores, vxH=vxH), np.float32(0.5),
+                           scalars, drift)
+        st = run(4, np.float32(0.0), np.float32(0.0))[0]
+        bx, by, _, _, steps = run.read(None)
+        if drift is own:
+            want = fc.pair_drift_bounds(spec, lay, st["xP"], st["yP"])
+        else:
+            want = drift.bounds(nx, st["xP"], st["yP"])
+        got = (bx, by)
+        _say(f"runner drift {label} {case}: steps={steps} kernel "
+             f"{[_drift_bits(v) for v in got]} plain "
+             f"{[_drift_bits(v) for v in want]}")
+        for a, b in zip(got, (float(v) for v in want)):
+            a = float(a)
+            if not (a == b or (math.isnan(a) and math.isnan(b))):
+                raise AssertionError(f"runner drift {label} {case}: kernel "
+                                     f"{a!r} vs pair_drift_bounds {b!r}")
+        if case == "NaN position" and not math.isnan(float(bx)):
+            raise AssertionError(f"runner drift {label}: a NaN position "
+                                 "gave a finite bound")
+
+
+def phase_runner(device) -> dict:
+    """9. The chunk path on persistent buffers against the stateless
+    path, bit for bit, at the benchmark's two grids, with and without
+    forced rollbacks; the drift kernel against ``pair_drift_bounds``."""
+    import numpy as np
+    import torch
+    from sph_poiseuille_flow_torch.ops import fused_cell_cuda as fcc
+    from sph_poiseuille_flow_torch.stepper import PallasCellEngine
+
+    out = {}
+    for conf in ("channel-dp0.01", "channel-dp0.005"):
+        cfg0, scene, s0 = _developed(conf, device)
+        _runner_drift(device, conf, cfg0, scene, s0)
+        for case, knobs, predictor in (
+                ("shipping", {}, "1"),
+                ("rollback", dict(neighbor_skin=0.1 * cfg0.dp), "0")):
+            cfg = dataclasses.replace(cfg0, **knobs)
+            old = os.environ.get("SPH_DRIFT_PREDICTOR")
+            os.environ["SPH_DRIFT_PREDICTOR"] = predictor
+            try:
+                res = []
+                for buffered in (False, True):
+                    eng = PallasCellEngine(cfg, scene, device)
+                    eng.chunk_buffers = buffered
+                    s, lay, geom, _ = eng.init(s0)
+                    fcc.reset_launch_counts()
+                    r = eng.run_interval(s, lay, geom, np.float32(0.5),
+                                         max_steps=RUNNER_STEPS)
+                    torch.cuda.synchronize()
+                    res.append((r, dict(fcc.LAUNCHES),
+                                dict(fcc.CHUNK_BUFFERS)))
+            finally:
+                if old is None:
+                    os.environ.pop("SPH_DRIFT_PREDICTOR", None)
+                else:
+                    os.environ["SPH_DRIFT_PREDICTOR"] = old
+            (r1, l1, _), (r2, l2, cb) = res
+            what = f"runner {conf} {case}"
+            _same_interval(what, r1, r2)
+            if l1 != l2:
+                raise AssertionError(f"{what}: launches {l2} against the "
+                                     f"stateless path's {l1}")
+            if case == "rollback" and r2.n_rollbacks == 0:
+                raise AssertionError(f"{what}: no sub-chunk rolled back")
+            if cb["sets_built"] != 1 or cb["runs"] != r2.n_syncs:
+                raise AssertionError(f"{what}: CHUNK_BUFFERS {cb}, "
+                                     f"{r2.n_syncs} host syncs")
+            _say(f"{what}: bit-equal, steps={r2.n_steps} "
+                 f"rollbacks={r2.n_rollbacks} syncs={r2.n_syncs} "
+                 f"CHUNK_BUFFERS={cb}")
+            out[f"{conf}:{case}"] = dict(steps=r2.n_steps,
+                                         rollbacks=r2.n_rollbacks,
+                                         syncs=r2.n_syncs, **cb)
+    return out
+
+
 def phase_sweep(device) -> dict:
     """(i) The fused sweep through the CLI at dp=0.01 with the shipping
     knobs, eight lanes for 0.1 s: every lane finite with v_max rising (the
@@ -2124,6 +2300,7 @@ def main() -> int:
         mesh = phase_mesh(device, main_res, check)
         main_res["counts"].update(mesh["counts"])
         oracle = phase_oracle(device)
+        runner = phase_runner(device)
         _say(f"all phases done in {time.perf_counter() - t0:.1f} s")
     except Exception:
         traceback.print_exc()
@@ -2165,6 +2342,7 @@ def main() -> int:
     print(json.dumps({"mesh": {k: v for k, v in mesh.items()
                                if k != "counts"}}))
     print(json.dumps({"native_oracle": oracle}))
+    print(json.dumps({"chunk_runner": runner}))
     for run, r in main_res["runs"].items():
         print(json.dumps({"run": run, "L2_error": r["L2_error"],
                           "steps": r["step"], "t": r["t"],

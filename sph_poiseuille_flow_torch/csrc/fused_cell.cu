@@ -13,6 +13,15 @@
 //        clock, on device), the four sweeps and a halo refresh that takes
 //        the next step's v_max; the host enqueues exactly n_sub steps with
 //        no sync.
+//     -> sph_chunk_run: the same launches on a persistent output set
+//        (fused_cell_cuda.ChunkBuffers), with the sub-chunk's round trip
+//        around them in the one entry: the control record in from pinned
+//        host memory, the set's outputs zeroed and its working state
+//        copied in, then after the chunk the drift bounds (drift_cells,
+//        drift_windows) and the record back out to pinned memory, which
+//        the host reads after one synchronize.
+//   * pair_drift_bounds (fused_cell.py:1786-1849; plain torch in the port's
+//     ops/fused_cell.py, XLA on the TPU) -> drift_cells, drift_windows.
 //   * the geometry cache of both (cache_plan :422-458; written :663-674,
 //     read :743-762, :845-861, :1005-1022) -> FORM_CACHE below.
 //   * _kernel_body_rows, the candidate-row-outer loop (:1081-1468, picked
@@ -219,6 +228,42 @@ struct ShearBufs {
   float *tb, *tt;     // plain per-slot partial sums (bottom / top wall)
   float mu, wf;
   int nrows;
+};
+
+// the control record of sph_chunk_run, on the device and in two pinned
+// host copies (in: written by the host before the call; out: read by the
+// host after it); 15 words, fused_cell_cuda.REC_*
+struct ChunkRec {
+  float clock[5];      // t, t_comp, interval, dt_visc, dt_body
+  int steps[2];        // done, n_sub
+  unsigned vmax2;      // v_max^2 as float bits (in: 0)
+  float dyn[5];        // StepBufs::dyn: dt, g, mu, wf, active
+  unsigned bound[2];   // drift bounds (x, y) as float bits, ~0u for NaN
+                       // (in: 0)
+};
+
+// sph_chunk_run's copies: ncopy spans of the working state in (the inputs
+// to the set's x, y, vx, vy, dr), the set's outputs zeroed, the record
+struct ChunkIO {
+  int ncopy;
+  const void* src[5];
+  void* dst[5];
+  size_t bytes[5];
+  void* zero;
+  size_t zero_bytes;
+  const ChunkRec* rec_in;   // pinned host
+  ChunkRec* rec_out;        // pinned host
+  ChunkRec* rec;            // device
+};
+
+// the drift bounds' inputs: the rebuild's plain position cores and the
+// fluid mask of `rows` cell rows, which are rows row0 .. row0+rows-1 of
+// the chunk's plain x2/y2 cores; isf plain (rows, K, nx) or, with
+// isf_halo, the halo'd core of those rows; cells: 4 x rows x nx scratch
+struct DriftBufs {
+  const float *refx, *refy, *isf;
+  float* cells;
+  int rows, row0, isf_halo;
 };
 
 }  // extern "C"
@@ -1573,6 +1618,120 @@ __global__ void __launch_bounds__(256) refresh(SphConst c, StepBufs b,
   block_vmax(m, vmax2);
 }
 
+// ---- the drift bounds of the chunk's final positions (pair_drift_bounds,
+//      ops/fused_cell.py; the JAX package's fused_cell.py:1786-1849): per
+//      cell the max and the min over slot rank of the x and y drift since
+//      the rebuild, fluid slots by their drift, wall slots as 0, empty
+//      slots (refx parked at 1e9) left out as -+1e30; then per 2-row x
+//      2-column window (x-wrapped; for nx < 3 a window of 2 rows x every
+//      column) the range max - min, clamped at 0, and the largest range
+//      of each axis. Max and min are exact in any order, so the bounds
+//      equal the plain version's, NaN included: a NaN drift propagates
+//      through the max and the min (max_nan, min_nan) as torch.amax's
+//      does, and a NaN range takes the largest key (~0u, itself a NaN's
+//      bits) where every other range, >= 0 after the clamp, keys as its
+//      bits (-0 as +0), which order as unsigned integers. What bounds it:
+//      nyp*K*nx slots read once (five floats each, from L2); two small
+//      launches. ----
+__device__ __forceinline__ float max_nan(float a, float b) {
+  return (a != a || a > b) ? a : b;
+}
+
+__device__ __forceinline__ float min_nan(float a, float b) {
+  return (a != a || a < b) ? a : b;
+}
+
+__global__ void __launch_bounds__(256) drift_cells(SphConst c, DriftBufs d,
+                                                   const float* x2,
+                                                   const float* y2) {
+  const int n = d.rows * c.nx;
+  const int i = blockIdx.x * blockDim.x + threadIdx.x;
+  if (i >= n) return;
+  const int iy = i / c.nx, ix = i - iy * c.nx;
+  float hx = 0.0f, hy = 0.0f, lx = 0.0f, ly = 0.0f;
+  for (int k = 0; k < c.K; ++k) {
+    const int r = pix(c, iy, k, ix);
+    const int f = d.isf_halo ? hix(c, iy + 1, k, ix + 1) : r;
+    float ax, ay, bx, by;   // this slot's terms of the max and the min
+    if (d.isf[f] > 0.0f) {
+      const int p = pix(c, iy + d.row0, k, ix);
+      ax = bx = x2[p] - d.refx[r];
+      ay = by = y2[p] - d.refy[r];
+    } else if (d.refx[r] < 0.5f * 1e9f) {
+      ax = ay = bx = by = 0.0f;
+    } else {
+      ax = ay = -1e30f;
+      bx = by = 1e30f;
+    }
+    if (k == 0) {
+      hx = ax; hy = ay; lx = bx; ly = by;
+    } else {
+      hx = max_nan(hx, ax); hy = max_nan(hy, ay);
+      lx = min_nan(lx, bx); ly = min_nan(ly, by);
+    }
+  }
+  d.cells[i] = hx;
+  d.cells[n + i] = hy;
+  d.cells[2 * n + i] = lx;
+  d.cells[3 * n + i] = ly;
+}
+
+// a window's range of one axis as its key (see above)
+__device__ __forceinline__ unsigned drift_key(const float* mx,
+                                              const float* mn, int nx,
+                                              int iy, int ix) {
+  float h, l;
+  if (nx >= 3) {
+    const int jx = ix + 1 == nx ? 0 : ix + 1;
+    const int a = iy * nx, b = a + nx;
+    h = max_nan(max_nan(mx[a + ix], mx[b + ix]),
+                max_nan(mx[a + jx], mx[b + jx]));
+    l = min_nan(min_nan(mn[a + ix], mn[b + ix]),
+                min_nan(mn[a + jx], mn[b + jx]));
+  } else {
+    h = mx[iy * nx];
+    l = mn[iy * nx];
+    for (int j = 0; j < 2 * nx; ++j) {
+      h = max_nan(h, mx[iy * nx + j]);
+      l = min_nan(l, mn[iy * nx + j]);
+    }
+  }
+  const float v = h - l;
+  if (v != v) return ~0u;
+  return v > 0.0f ? __float_as_uint(v) : 0u;
+}
+
+__global__ void __launch_bounds__(256) drift_windows(SphConst c, DriftBufs d,
+                                                     unsigned* bound) {
+  __shared__ unsigned wk[2][32];
+  const int n = d.rows * c.nx;
+  const int wc = c.nx >= 3 ? c.nx : 1;
+  const int i = blockIdx.x * blockDim.x + threadIdx.x;
+  unsigned kx = 0u, ky = 0u;
+  if (i < (d.rows - 1) * wc) {
+    const int iy = i / wc, ix = i - iy * wc;
+    kx = drift_key(d.cells, d.cells + 2 * n, c.nx, iy, ix);
+    ky = drift_key(d.cells + n, d.cells + 3 * n, c.nx, iy, ix);
+  }
+  kx = __reduce_max_sync(0xffffffffu, kx);
+  ky = __reduce_max_sync(0xffffffffu, ky);
+  const int w = threadIdx.x >> 5, l = threadIdx.x & 31;
+  if (l == 0) {
+    wk[0][w] = kx;
+    wk[1][w] = ky;
+  }
+  __syncthreads();
+  if (w == 0) {
+    const bool in = l < (int)(blockDim.x >> 5);
+    kx = __reduce_max_sync(0xffffffffu, in ? wk[0][l] : 0u);
+    ky = __reduce_max_sync(0xffffffffu, in ? wk[1][l] : 0u);
+    if (l == 0) {
+      atomicMax(bound, kx);
+      atomicMax(bound + 1, ky);
+    }
+  }
+}
+
 // ---- wall-shear partials (sph_physics_mex.c:1713-1742;
 //      fused_cell.py:1928-1979). Only an anchor whose window holds a wall
 //      slot (wbot or wtop set) adds anything: every other term is f_pair
@@ -1858,6 +2017,27 @@ cudaError_t sweeps(const SphConst& c, const StepBufs& b, const CacheBufs& cb,
   return cudaSuccess;
 }
 
+// the chunk's launches (sph_chunk, sph_chunk_run): the v_max reduction over
+// the input velocity cores, then per step the control, the four sweeps and
+// the halo refresh; 1 + 6 n_sub launches
+cudaError_t chunk_launches(const SphConst& c, const StepBufs& b,
+                           const CacheBufs& cb, int form, float* clock,
+                           int* steps, unsigned* vmax2, int n_sub,
+                           cudaStream_t st) {
+  const int n_h = (c.nyp + 2) * c.K * (c.nx + 2);
+  const int nh = blocks_for(n_h, 256);
+  vmax_init<<<nh, 256, 0, st>>>(b.vx, b.vy, n_h, vmax2);
+  for (int i = 0; i < n_sub; ++i) {
+    chunk_ctrl<<<1, 1, 0, st>>>(c, b, vmax2, clock, steps);
+    cudaError_t e = sweeps(c, b, cb, form, 0, 4, st);
+    if (e != cudaSuccess) return e;
+    refresh<<<nh, 256, 0, st>>>(c, b, vmax2);
+    e = cudaGetLastError();
+    if (e != cudaSuccess) return e;
+  }
+  return cudaGetLastError();
+}
+
 }  // namespace
 
 extern "C" {
@@ -1901,21 +2081,47 @@ int sph_expand(const float* v, float* out, int rows, int bx, int K,
 int sph_chunk(const SphConst* cp, const StepBufs* bp, const CacheBufs* cbp,
               int form, float* clock, int* steps, unsigned* vmax2, int n_sub,
               void* stream) {
+  return static_cast<int>(chunk_launches(*cp, *bp, *cbp, form, clock, steps,
+                                         vmax2, n_sub,
+                                         static_cast<cudaStream_t>(stream)));
+}
+
+// sph_chunk's launches on a persistent set (bp: its working state and
+// outputs, dyn in the device record), the sub-chunk's round trip around
+// them: the record in (io->rec_in -> io->rec), the outputs zeroed, the
+// working state copied in, the chunk, the drift bounds of its final
+// positions into the record (none where dp is null: they stay 0), the
+// record out (io->rec -> io->rec_out). Nothing synchronizes: the caller
+// waits on the stream before it reads rec_out.
+int sph_chunk_run(const SphConst* cp, const StepBufs* bp,
+                  const CacheBufs* cbp, int form, const ChunkIO* io,
+                  const DriftBufs* dp, int n_sub, void* stream) {
   const SphConst c = *cp;
-  const StepBufs b = *bp;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  const int n_h = (c.nyp + 2) * c.K * (c.nx + 2);
-  const int nh = blocks_for(n_h, 256);
-  vmax_init<<<nh, 256, 0, st>>>(b.vx, b.vy, n_h, vmax2);
-  for (int i = 0; i < n_sub; ++i) {
-    chunk_ctrl<<<1, 1, 0, st>>>(c, b, vmax2, clock, steps);
-    cudaError_t e = sweeps(c, b, *cbp, form, 0, 4, st);
-    if (e != cudaSuccess) return static_cast<int>(e);
-    refresh<<<nh, 256, 0, st>>>(c, b, vmax2);
+  ChunkRec* rec = io->rec;
+  cudaError_t e = cudaMemcpyAsync(rec, io->rec_in, sizeof(ChunkRec),
+                                  cudaMemcpyHostToDevice, st);
+  if (e == cudaSuccess)
+    e = cudaMemsetAsync(io->zero, 0, io->zero_bytes, st);
+  for (int i = 0; i < io->ncopy && e == cudaSuccess; ++i)
+    e = cudaMemcpyAsync(io->dst[i], io->src[i], io->bytes[i],
+                        cudaMemcpyDeviceToDevice, st);
+  if (e == cudaSuccess)
+    e = chunk_launches(c, *bp, *cbp, form, rec->clock, rec->steps,
+                       &rec->vmax2, n_sub, st);
+  if (e == cudaSuccess && dp != nullptr) {
+    const DriftBufs d = *dp;
+    drift_cells<<<blocks_for(d.rows * c.nx, 256), 256, 0, st>>>(
+        c, d, bp->x2, bp->y2);
+    const int nw = (d.rows - 1) * (c.nx >= 3 ? c.nx : 1);
+    drift_windows<<<blocks_for(nw > 0 ? nw : 1, 256), 256, 0, st>>>(
+        c, d, rec->bound);
     e = cudaGetLastError();
-    if (e != cudaSuccess) return static_cast<int>(e);
   }
-  return static_cast<int>(cudaGetLastError());
+  if (e == cudaSuccess)
+    e = cudaMemcpyAsync(io->rec_out, rec, sizeof(ChunkRec),
+                        cudaMemcpyDeviceToHost, st);
+  return static_cast<int>(e != cudaSuccess ? e : cudaGetLastError());
 }
 
 int sph_shear(const SphConst* cp, const ShearBufs* bp, void* stream) {

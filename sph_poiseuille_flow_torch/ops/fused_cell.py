@@ -30,8 +30,11 @@ Each plain sweep is a function of its own (``_sweep0_plain`` ..
 ``_sweep3_plain``, the cores each writes in ``SWEEP_WRITES``), so that
 ``ops/probes.py`` can run a sweep range.
 
-The rebuild glue (slot assignment, packed scatter, takes) and the drift
-guard are plain torch, as they are XLA in the JAX package.
+The rebuild glue (slot assignment, packed scatter, takes) is plain
+torch, as it is XLA in the JAX package. The engine's chunk path runs
+through ``ChunkRunner``: persistent buffers, and on the card one call a
+sub-chunk that also takes the drift guard's bounds (plain torch here:
+``pair_drift_bounds``, the CPU path and the kernels' reference).
 """
 
 from __future__ import annotations
@@ -395,12 +398,11 @@ def pair_drift_bounds(spec: GridSpec, lay: FusedLayout, x2P, y2P):
     fluid slots contribute their drift, wall slots anchor the range at 0,
     empty slots are excluded; the max over 2-row x 2-column (x-wrapped)
     windows of the per-slot displacement range bounds every candidate
-    pair. Candidates stay valid while bx <= skin_x and by <= skin_y."""
-    nyp = plan(spec)[3]
-    nx = spec.nx
-    fl = lay.isf_c[1:nyp + 1, :, 1:nx + 1] > 0
-    mx, mn = drift_row_ranges(fl, lay.refx_p, lay.refy_p, x2P, y2P)
-    return drift_window_bounds(mx, mn, nx)
+    pair. Candidates stay valid while bx <= skin_x and by <= skin_y.
+    On the card the chunk path takes them in ``sph_chunk_run``'s drift
+    kernels (``ChunkRunner``), which equal this."""
+    return DriftRef(lay.refx_p, lay.refy_p, lay.isf_c).bounds(spec.nx, x2P,
+                                                              y2P)
 
 
 def drift_row_ranges(fl, refx, refy, x2P, y2P):
@@ -922,6 +924,21 @@ def fused_chunk_call_plain(spec: GridSpec, lay: FusedLayout, xH, yH, vxH,
     """Plain PyTorch twin of the chunk kernel (any device; one host sync
     per step for the loop condition), in the form ``chunk_form``
     resolves."""
+    *work, o, steps, t, tc = _chunk_plain(
+        spec, lay, xH, yH, vxH, vyH, drP, t_local, t_comp, interval_len,
+        n_sub, rho0, p0, c_f, inv_sigma0, transport_coeff, g, mu,
+        wall_visc_factor)
+    st, aux = _chunk_result(*work, o, spec)
+    return st, aux, steps, t, tc
+
+
+def _chunk_plain(spec: GridSpec, lay: FusedLayout, xH, yH, vxH, vyH, drP,
+                 t_local, t_comp, interval_len, n_sub, rho0: float, p0: float,
+                 c_f: float, inv_sigma0: float, transport_coeff: float, g, mu,
+                 wall_visc_factor: float):
+    """``fused_chunk_call_plain``'s loop: (xH, yH, vxH, vyH, drP working
+    state, the last step's outputs with ``cnt`` per slot (zeros where no
+    step ran), steps, t, t_comp)."""
     like = xH
     n_cached = _cached_ranks(*chunk_form(spec, xH.dtype))
     h = spec.h
@@ -965,9 +982,9 @@ def fused_chunk_call_plain(spec: GridSpec, lay: FusedLayout, xH, yH, vxH,
         zh = torch.zeros_like(xH)
         o = dict({k: (zh if k.endswith("H") else z) for k in _AUX},
                  drP=z, xP=z, yP=z, cnt=z)
-    st, aux = _chunk_result(xHs, yHs, vxHs, vyHs, drPs, o, spec)
-    return (st, aux, torch.tensor(steps, dtype=torch.int32,
-                                  device=like.device), t, tc)
+    return (xHs, yHs, vxHs, vyHs, drPs, o,
+            torch.tensor(steps, dtype=torch.int32, device=like.device), t,
+            tc)
 
 
 def fused_chunk_call(spec: GridSpec, lay: FusedLayout, xH, yH, vxH, vyH,
@@ -1001,6 +1018,151 @@ def fused_chunk_call(spec: GridSpec, lay: FusedLayout, xH, yH, vxH, vyH,
         cache_slots=cache_slots)
     st, aux = _chunk_result(*work, o, spec)
     return st, aux, steps, t, tc
+
+
+class DriftRef(NamedTuple):
+    """What a group's drift bounds compare the chunk's final positions
+    with: the rebuild's plain position cores (rows, K, nx), the fluid mask
+    (``isf``: the halo'd core of those rows where ``isf_halo``, else
+    plain) and the chunk's plain row that their first row is (``row0``:
+    a y-slab's ghost rows come first)."""
+
+    refx: torch.Tensor
+    refy: torch.Tensor
+    isf: torch.Tensor
+    isf_halo: bool = True
+    row0: int = 0
+
+    def bounds(self, nx: int, x2P, y2P):
+        """(bx, by) in plain torch: ``pair_drift_bounds`` over these
+        rows."""
+        rows = self.refx.shape[0]
+        isf = self.isf[1:rows + 1, :, 1:nx + 1] if self.isf_halo else self.isf
+        r = slice(self.row0, self.row0 + rows)
+        mx, mn = drift_row_ranges(isf > 0, self.refx, self.refy, x2P[r],
+                                  y2P[r])
+        return drift_window_bounds(mx, mn, nx)
+
+
+class ChunkRunner:
+    """The chunk path on persistent buffers, which the fused engine's
+    sub-chunk groups take: one ``fused_cell_cuda.ChunkBuffers`` per key
+    (halo'd and plain core shapes, form and cached ranks, device, dtype),
+    built on first use and reused by every later group, interval and
+    lane; and the dt limits per (rho0, g, mu)."""
+
+    def __init__(self):
+        self._bufs = {}
+        self._dt = {}
+
+    def group(self, spec: GridSpec, lay: FusedLayout, carry, interval_len,
+              scalars, drift: DriftRef = None, cache_slots: int = 0):
+        """A sub-chunk group's runner over ``lay`` from ``carry`` (the
+        chunk state: xH, yH, vxH, vyH, drP and the aux cores) on the
+        buffers of its cores' key. ``scalars``: (rho0, p0, c_f,
+        inv_sigma0, transport_coeff, g, mu, wall_visc_factor);
+        ``drift``: the bounds' references, None for none (bounds 0)."""
+        xH, drP = carry["xH"], carry["drP"]
+        _check_device(xH)
+        form, k_cut = chunk_form(spec, xH.dtype)
+        key = (tuple(xH.shape), tuple(drP.shape), form,
+               _cached_ranks(form, k_cut), xH.device, xH.dtype)
+        bufs = self._bufs.get(key)
+        if bufs is None:
+            bufs = self._bufs[key] = fused_cell_cuda.ChunkBuffers(
+                spec, plan(spec)[0], form, k_cut, xH.shape, drP.shape,
+                xH.dtype, xH.device)
+        dt = None
+        if xH.is_cuda:
+            # the step-independent dt limits, rounded as fused_chunk_call
+            # rounds them
+            key = (spec, scalars[0], float(scalars[5]), float(scalars[6]))
+            dt = self._dt.get(key)
+            if dt is None:
+                host = torch.empty((), dtype=xH.dtype)
+                dt = self._dt[key] = tuple(
+                    float(v) for v in chunk_dt_limits(*key, host))
+        return BufferedChunkRun(bufs, spec, lay, carry, interval_len,
+                                scalars, drift, cache_slots, dt)
+
+
+class BufferedChunkRun:
+    """A sub-chunk group's runner (``stepper.SubChunkRun``'s protocol)
+    on a key's buffers (``ChunkRunner.group``): a call runs up to n_sub
+    steps from the kept state into the scratch set, ``read`` returns what
+    the call left on the host (bx, by, t, t_comp, steps), ``keep`` swaps
+    the sets (a rollback swaps nothing), ``state`` returns the kept state.
+    The kept set holds what the last kept call wrote until the next keep,
+    so a group that ends on a rollback, and the next group's carry, read
+    the aux cores of the last kept call. On the card a call is one
+    ``sph_chunk_run`` and one synchronize, the drift bounds taken there
+    beside the chunk; on the CPU the plain twins
+    (``fused_chunk_call_plain``'s loop, ``DriftRef.bounds``) fill the
+    scratch set and one ``tolist`` reads what the card's record holds.
+    The trajectory is ``stepper.ChunkRun``'s, bit for bit."""
+
+    def __init__(self, bufs, spec, lay, carry, interval_len, scalars,
+                 drift, cache_slots, dt_limits):
+        self.cur, self.new = carry, None
+        self.bufs, self.spec, self.lay = bufs, spec, lay
+        self.interval, self.scalars, self.drift = interval_len, scalars, drift
+        self._last = None
+        self._card = bufs.cores[0]["x"].is_cuda
+        if self._card:
+            bufs.bind(lay)
+            self._c = bufs.const(spec, scalars[:5], cache_slots)
+            self._clock = (interval_len, *dt_limits)
+            self._dyn = tuple(float(v) for v in scalars[5:8])
+            self._drift = None if drift is None else bufs.drift(*drift)
+
+    def __call__(self, n_sub: int, t_i, tc_i):
+        fused_cell_cuda.CHUNK_BUFFERS["runs"] += 1
+        b = self.bufs
+        inputs = [self.cur[k] for k in ("xH", "yH", "vxH", "vyH", "drP")]
+        if self._card:
+            self._last = b.launch(self._c, inputs, (t_i, tc_i) + self._clock,
+                                  self._dyn, n_sub, self._drift)
+        else:
+            self._last = self._run_plain(inputs, t_i, tc_i, n_sub)
+        self.new = b.state(b.scratch)
+        return self.new, None, None, None, 0
+
+    def _run_plain(self, inputs, t_i, tc_i, n_sub):
+        b = self.bufs
+        *work, o, steps, t, tc = _chunk_plain(
+            self.spec, self.lay, *inputs, t_i, tc_i, self.interval, n_sub,
+            *self.scalars)
+        s = b.scratch
+        b.zero_outputs(s)
+        for n, v in zip(("x", "y", "vx", "vy", "dr"), work):
+            b.cores[s][n].copy_(v)
+        st = b.state(s)
+        for k in _AUX + ("drP", "xP", "yP", "cnt"):
+            st[k].copy_(o[k])
+        if self.drift is None:
+            bx = by = torch.zeros((), dtype=t.dtype, device=t.device)
+        else:
+            bx, by = self.drift.bounds(self.spec.nx, st["xP"], st["yP"])
+        vals = torch.stack([bx, by, t, tc, steps.to(t.dtype)]).tolist()
+        return (*vals[:4], int(vals[4]))
+
+    def read(self, bounds, *_):
+        """The last call's (bx, by, t, t_comp, steps), already on the
+        host (``bounds`` is the caller's: the drift given at set-up
+        stands for it)."""
+        return self._last
+
+    def keep(self) -> None:
+        self.bufs.keep()
+        self.cur = self.new
+
+    def state(self) -> dict:
+        """The kept state, ``cnt`` as ``fused_chunk_call``'s:
+        (n_groups, L)."""
+        c = self.cur
+        if c["cnt"].dim() == 3:    # the buffers' count per slot
+            c = dict(c, cnt=_cnt_rows(self.spec, c["cnt"]))
+        return c
 
 
 # ---------------------------------------------------------------------------

@@ -14,7 +14,9 @@ Each wrapper checks device, dtype (float32), shape and contiguity, launches
 on PyTorch's current stream without synchronising, raises when the C entry
 point reports a CUDA error, and adds one to its entry of ``LAUNCHES`` (one
 entry per kernel and form). A form it does not know raises; no form gives
-way to another.
+way to another. ``ChunkBuffers`` is the chunk's persistent form: its
+``launch`` (``sph_chunk_run``) is the one wrapper that synchronises, since
+it returns the sub-chunk's control record to the host.
 """
 
 from __future__ import annotations
@@ -28,6 +30,7 @@ import shutil
 import subprocess
 import tempfile
 
+import numpy as np
 import torch
 
 from .kernels import sigma_2d
@@ -75,12 +78,19 @@ ROWS_BLOCK_MAX = 1024
 ROWS_FIELDS = 14
 SMEM_MAX = 232_448
 
+# the chunk runner's persistent buffers (``ChunkBuffers``): key sets built
+# and chunk runs through them; apart from LAUNCHES, whose sum counts the
+# wrapper calls (a run on the card also counts one "fused_chunk*" launch)
+CHUNK_BUFFERS = {"sets_built": 0, "runs": 0}
+
 _lib = None
 
 
 def reset_launch_counts() -> None:
     for k in LAUNCHES:
         LAUNCHES[k] = 0
+    for k in CHUNK_BUFFERS:
+        CHUNK_BUFFERS[k] = 0
 
 
 class _Const(ctypes.Structure):
@@ -112,6 +122,20 @@ _CACHE_PTRS = ("idx", "ex", "ey", "r", "c1", "cw", "n", "rec")
 
 class _CacheBufs(ctypes.Structure):
     _fields_ = [(n, ctypes.c_void_p) for n in _CACHE_PTRS]
+
+
+class _ChunkIO(ctypes.Structure):
+    _fields_ = [("ncopy", ctypes.c_int), ("src", ctypes.c_void_p * 5),
+                ("dst", ctypes.c_void_p * 5), ("bytes", ctypes.c_size_t * 5),
+                ("zero", ctypes.c_void_p), ("zero_bytes", ctypes.c_size_t),
+                ("rec_in", ctypes.c_void_p), ("rec_out", ctypes.c_void_p),
+                ("rec", ctypes.c_void_p)]
+
+
+class _DriftBufs(ctypes.Structure):
+    _fields_ = ([(n, ctypes.c_void_p) for n in ("refx", "refy", "isf",
+                                                "cells")]
+                + [(n, ctypes.c_int) for n in ("rows", "row0", "isf_halo")])
 
 
 class _ShearBufs(ctypes.Structure):
@@ -163,11 +187,13 @@ def _load():
         lib.sph_step.argtypes = [vp, vp, vp, ip, vp]
         lib.sph_step_sweeps.argtypes = [vp, vp, vp, ip, ip, ip, vp]
         lib.sph_chunk.argtypes = [vp, vp, vp, ip, vp, vp, vp, ip, vp]
+        lib.sph_chunk_run.argtypes = [vp, vp, vp, ip, vp, vp, ip, vp]
         lib.sph_shear.argtypes = [vp, vp, vp]
         lib.sph_noop.argtypes = [vp, vp, vp]
         lib.sph_expand.argtypes = [vp, vp, ip, ip, ip, vp]
         for fn in (lib.sph_step, lib.sph_step_sweeps, lib.sph_chunk,
-                   lib.sph_shear, lib.sph_noop, lib.sph_expand):
+                   lib.sph_chunk_run, lib.sph_shear, lib.sph_noop,
+                   lib.sph_expand):
             fn.restype = ip
         _lib = lib
     return _lib
@@ -553,6 +579,208 @@ def chunk(spec, R: int, lay, xH, yH, vxH, vyH, drP, t_local, t_comp,
     LAUNCHES[launch_key("fused_chunk", form)] += 1
     return (work, _outputs(out), steps[0], clock[0], clock[1],
             vmax2.view(torch.float32)[0])
+
+
+# the words of csrc/fused_cell.cu's ``ChunkRec``, sph_chunk_run's control
+# record: the clock [t, t_comp, interval, dt_visc, dt_body], the steps
+# [done, n_sub], v_max^2's bits, the step's [dt, g, mu, wf, active] and
+# the drift bounds (bx, by)
+REC_WORDS = 15
+REC_T, REC_TC, REC_DONE, REC_DYN, REC_BX, REC_BY = 0, 1, 5, 8, 13, 14
+
+# a chunk set's cores in the order of its one allocation: the outputs
+# (zeroed before every run), then the working state; each core starts on
+# a 512-byte boundary, as a tensor of its own would
+_SET_OUT = (("vol", "b11", "b12", "b21", "b22", "vx2", "vy2", "rhoH", "pH"),
+            ("rho", "p", "drho", "fx", "fy", "fpx", "fpy", "x2", "y2",
+             "cnt", "dxs", "dys"))
+_SET_WORK = ("x", "y", "vx", "vy", "dr")
+_SET_ALIGN = 128
+_CHUNK_IN = ("xH", "yH", "vxH", "vyH", "drP")
+
+
+class ChunkBuffers:
+    """The multi-step chunk's outputs and working state for one key
+    (halo'd and plain core shapes, form and cached ranks, device, dtype),
+    allocated once as two sets, "kept" and "scratch": one contiguous
+    allocation each, the cores views into it. A run writes the scratch
+    set only and ``keep`` swaps the two roles, so the kept set holds the
+    last kept sub-chunk's state, however many runs are rolled back,
+    until the next keep.
+
+    On the card it also holds the geometry cache (sweep 0 rewrites it
+    every step, so one serves both sets), the control record (on the
+    device and in two pinned host copies), the drift bounds' cell table
+    and the kernel constants per (spec, scalars), and ``launch`` runs a
+    sub-chunk as one ``sph_chunk_run``. On the CPU the caller fills the
+    scratch set (``fused_cell.ChunkRunner``)."""
+
+    def __init__(self, spec, R: int, form: str, k_cut: int, halo, plain,
+                 dtype, dev):
+        self.form = form
+        self.kform, self.kcut = _form(form, k_cut, spec.K)
+        self.R, self.halo, self.plain = R, tuple(halo), tuple(plain)
+        shapes = ([(n, self.halo) for n in _SET_OUT[0]]
+                  + [(n, self.plain) for n in _SET_OUT[1]]
+                  + [(n, self.halo) for n in _SET_WORK[:4]]
+                  + [(_SET_WORK[4], self.plain)])
+        offs, o = {}, 0
+        for n, shp in shapes:
+            offs[n] = o
+            o += -(-math.prod(shp) // _SET_ALIGN) * _SET_ALIGN
+        self._n_out = offs["x"]
+        self._mem = torch.empty((2, o), dtype=dtype, device=dev)
+        self.cores = [{n: self._mem[i, offs[n]:offs[n] + math.prod(shp)]
+                       .view(shp) for n, shp in shapes} for i in (0, 1)]
+        self.kept = 0
+        self._consts = {}
+        CHUNK_BUFFERS["sets_built"] += 1
+        if self._mem.is_cuda:
+            self._card_setup(spec, offs)
+
+    @property
+    def scratch(self) -> int:
+        return 1 - self.kept
+
+    def keep(self) -> None:
+        """The scratch set becomes the kept one."""
+        self.kept = 1 - self.kept
+
+    def zero_outputs(self, i: int) -> None:
+        self._mem[i, :self._n_out].zero_()
+
+    def state(self, i: int) -> dict:
+        """Set ``i``'s cores under the chunk state's names: the working
+        state xH, yH, vxH, vyH and the outputs (``fused_chunk_call``'s
+        state and aux dicts merged), ``cnt`` per slot (nyp, K, nx)."""
+        c = self.cores[i]
+        return dict(
+            xH=c["x"], yH=c["y"], vxH=c["vx"], vyH=c["vy"], drP=c["drho"],
+            xP=c["x2"], yP=c["y2"], volH=c["vol"], b11H=c["b11"],
+            b12H=c["b12"], b21H=c["b21"], b22H=c["b22"], rhoP=c["rho"],
+            pP=c["p"], fxP=c["fx"], fyP=c["fy"], fpxP=c["fpx"],
+            fpyP=c["fpy"], cnt=c["cnt"])
+
+    def _card_setup(self, spec, offs):
+        dev = self._mem.device
+        self._cache, self._cache_keep = _cache_bufs(spec, self.R, self.kcut,
+                                                    dev)
+        self._rec = torch.zeros(16, dtype=torch.int32, device=dev)
+        self._rec_in = torch.zeros(16, dtype=torch.int32, pin_memory=True)
+        self._rec_out = torch.zeros(16, dtype=torch.int32, pin_memory=True)
+        self._in_i = self._rec_in.numpy()
+        self._in = self._in_i.view(np.float32)
+        self._out_i = self._rec_out.numpy()
+        self._out = self._out_i.view(np.float32)
+        self._cells = torch.empty(4 * self.plain[0] * self.plain[2],
+                                  dtype=torch.float32, device=dev)
+        rec = self._rec.data_ptr()
+        self._bufs, self._io, self._work = [], [], []
+        for c in self.cores:
+            ptrs = {n: t.data_ptr() for n, t in c.items()}
+            self._bufs.append(_StepBufs(dyn=rec + 4 * REC_DYN, **ptrs))
+            self._io.append(_ChunkIO(
+                zero=ptrs["vol"], zero_bytes=4 * self._n_out,
+                rec_in=self._rec_in.data_ptr(),
+                rec_out=self._rec_out.data_ptr(), rec=rec))
+            self._work.append([ptrs[n] for n in _SET_WORK])
+        self._nbytes = [4 * math.prod(self.halo)] * 4 \
+            + [4 * math.prod(self.plain)]
+        self._span4 = 4 * (offs["vy"] - offs["x"]) + self._nbytes[3]
+
+    def bind(self, lay) -> None:
+        """Point both sets' step buffers at a layout's static cores and
+        occupancy bound (checked here; the caller keeps ``lay`` alive
+        while runs read it)."""
+        dev = self._mem.device
+        for t, n in ((lay.isf_c, "isf_c"), (lay.mass_c, "mass_c"),
+                     (lay.wvx_c, "wvx_c"), (lay.wvy_c, "wvy_c")):
+            _check(t, self.halo, n, dev)
+        _check(lay.occ, (self.plain[0] // self.R, 1), "occ", dev,
+               torch.int32)
+        for b in self._bufs:
+            b.isf, b.mass = lay.isf_c.data_ptr(), lay.mass_c.data_ptr()
+            b.wvx, b.wvy = lay.wvx_c.data_ptr(), lay.wvy_c.data_ptr()
+            b.occ = lay.occ.data_ptr()
+
+    def const(self, spec, scalars, cache_slots: int = 0):
+        """The kernel constants of ``spec`` and (rho0, p0, c_f,
+        inv_sigma0, transport_coeff), built once (``_const``)."""
+        key = (spec, tuple(scalars), cache_slots)
+        c = self._consts.get(key)
+        if c is None:
+            if _shapes(spec, self.R)[:2] != (self.halo, self.plain):
+                raise ValueError(f"spec's cores {_shapes(spec, self.R)[:2]}"
+                                 f" are not these buffers' "
+                                 f"{(self.halo, self.plain)}")
+            c = self._consts[key] = _const(
+                spec, self.R, *scalars, self.kcut, rows=self.kform == 2,
+                cache_slots=cache_slots)
+        return c
+
+    def drift(self, refx, refy, isf, isf_halo: bool, row0: int):
+        """The drift bounds' buffer struct over ``refx``'s rows, which are
+        rows row0 .. of the chunk's plain cores (``fused_cell.DriftRef``;
+        the caller keeps the tensors alive while runs read them)."""
+        dev = self._mem.device
+        rows, K, nx = refx.shape[0], self.plain[1], self.plain[2]
+        _check(refx, (rows, K, nx), "refx", dev)
+        _check(refy, (rows, K, nx), "refy", dev)
+        _check(isf, (rows + 2, K, nx + 2) if isf_halo else (rows, K, nx),
+               "isf", dev)
+        if not (0 <= row0 and row0 + rows <= self.plain[0]):
+            raise ValueError(f"drift rows {row0} .. {row0 + rows - 1} are "
+                             f"not inside the chunk's {self.plain[0]}")
+        return _DriftBufs(refx.data_ptr(), refy.data_ptr(), isf.data_ptr(),
+                          self._cells.data_ptr(), rows, row0, int(isf_halo))
+
+    def launch(self, c, inputs, clock, dyn, n_sub: int, drift=None):
+        """Up to ``n_sub`` steps of the chunk from ``inputs`` (xH, yH,
+        vxH, vyH, drP, left intact) into the scratch set, as ``chunk``
+        runs them, and the drift bounds of the final positions, in one
+        ``sph_chunk_run``; then one synchronize. ``c``: ``const``;
+        ``clock``: (t, t_comp, interval, dt_visc, dt_body); ``dyn``: (g,
+        mu, wf); ``drift``: ``drift``'s struct, or None (bounds 0).
+        Returns (bx, by, t, t_comp) as float32 numbers and the steps
+        done."""
+        dev = self._mem.device
+        s = 1 - self.kept
+        for t, n in zip(inputs, _CHUNK_IN):
+            shp = self.plain if n == "drP" else self.halo
+            if not (t.device == dev and t.dtype == torch.float32
+                    and t.shape == shp and t.is_contiguous()):
+                _check(t, shp, n, dev)
+        src = [t.data_ptr() for t in inputs]
+        dst = self._work[s]
+        if src[:4] == self._work[self.kept][:4]:
+            # the kept set's own working state: its halo'd cores are one
+            # span
+            spans = ((src[0], dst[0], self._span4),
+                     (src[4], dst[4], self._nbytes[4]))
+        else:
+            spans = tuple(zip(src, dst, self._nbytes))
+        io = self._io[s]
+        for i, (a, b, nb) in enumerate(spans):
+            io.src[i], io.dst[i], io.bytes[i] = a, b, nb
+        io.ncopy = len(spans)
+        r, ri = self._in, self._in_i
+        r[REC_T:REC_DONE] = clock
+        ri[REC_DONE:REC_DYN] = (0, n_sub, 0)
+        r[REC_DYN:REC_BX] = (0.0, *dyn, 1.0)
+        ri[REC_BX:REC_WORDS] = 0
+        lib = _load()
+        with torch.cuda.device(dev):
+            _raise_on(lib.sph_chunk_run(
+                ctypes.addressof(c), ctypes.addressof(self._bufs[s]),
+                ctypes.addressof(self._cache), self.kform,
+                ctypes.addressof(io),
+                None if drift is None else ctypes.addressof(drift),
+                int(n_sub), _stream(dev)), "sph_chunk_run")
+            torch.cuda.current_stream(dev).synchronize()
+        LAUNCHES[launch_key("fused_chunk", self.form)] += 1
+        o = self._out
+        return (o[REC_BX], o[REC_BY], o[REC_T], o[REC_TC],
+                int(self._out_i[REC_DONE]))
 
 
 @functools.lru_cache(maxsize=8)

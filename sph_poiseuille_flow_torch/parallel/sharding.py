@@ -60,7 +60,7 @@ from ..ops.monitors import wall_shear
 from ..ops.neighbors import gather_pack
 from ..ops.transport import transport_correction
 from ..ops.viscosity import viscous_force
-from ..stepper import (ChunkRun, CellEngine, Engine, IntervalResult,
+from ..stepper import (CellEngine, Engine, IntervalResult,
                        PallasCellEngine, State, SubChunkRun, _t_add)
 from .virtual import ensure_devices, is_virtual
 
@@ -889,8 +889,12 @@ class ShardedPallasEngine(PallasCellEngine):
                     for x in self._ext([s["x"] for s in sts], BIG)]
             isf = [s["isf"] for s in statics]
             if self.n_dev == 1:
+                drift = (pc.DriftRef(refx[0].contiguous(),
+                                     refy[0].contiguous(),
+                                     isf[0].contiguous(), False, self.ghost)
+                         if spec.skin > 0.0 else None)
                 run = self._chunk_run(sts[0], stat_h[0], occl[0], interval,
-                                      scalars)
+                                      scalars, drift)
 
                 def bounds(new, refx=refx, refy=refy, isf=isf):
                     return self._drift_bounds(
@@ -993,11 +997,13 @@ class ShardedPallasEngine(PallasCellEngine):
         t2, tc2 = _t_add(t, tc, dt)
         return out, t2, tc2
 
-    def _chunk_run(self, st, stat_h, occl, interval, scalars):
+    def _chunk_run(self, st, stat_h, occl, interval, scalars, drift):
         """A group's sub-chunk runner on a one-device mesh (JAX
         sharding.py:709-805): the chunk kernel on the extended slab, its
         halo'd carry cores feeding the next call directly. The rollback
-        seeds are the group-entry state in the chunk's own forms."""
+        seeds are the group-entry state in the chunk's own forms.
+        ``drift``: the slab's drift references (``fused_cell.DriftRef``
+        over its interior rows), None without a skin."""
         ls, BIG, spec = self.slab_spec, pc._BIG_X, self.spec
         halo = pc.halo_ify
 
@@ -1017,8 +1023,8 @@ class ShardedPallasEngine(PallasCellEngine):
             **{k + "P": ext(st[k])
                for k in ("rho", "p", "fx", "fy", "fpx", "fpy")},
             cnt=cnt_pad.reshape(ngl, Rl * spec.nx))
-        return ChunkRun(ls, shim, carry, interval, scalars,
-                        cache_slots=self.cache_slots)
+        return self._sub_chunk_run(ls, shim, carry, interval, scalars,
+                                   drift, cache_slots=self.cache_slots)
 
     def _carry_slab(self, c):
         """A one-device chunk carry -> its slab's state dict."""

@@ -607,11 +607,24 @@ class Engine(_PerStepEngine):
 class SubChunkRun:
     """A group's sub-chunk runner (``PallasCellEngine._run_group``): a
     call runs up to ``n_sub`` steps from the kept state and returns (what
-    it reached, steps, t, t_comp, host syncs); ``keep`` makes the last
-    call's state the kept one, ``state`` returns the kept state."""
+    it reached, steps, t, t_comp, host syncs); ``read`` brings what the
+    group's decision needs of it to the host; ``keep`` makes the last
+    call's state the kept one, ``state`` returns the kept state
+    (``fused_cell.BufferedChunkRun`` keeps the same protocol on
+    persistent buffers)."""
 
     def __init__(self, cur):
         self.cur, self.new = cur, None
+
+    def read(self, bounds, new, steps, t, t_comp):
+        """(bx, by, t, t_comp, steps) of a call's result on the host, in
+        one sync: the drift bounds (``bounds(new)``; 0 where ``bounds`` is
+        None) and the clock, in the clock's type."""
+        zero = torch.zeros((), dtype=t.dtype, device=t.device)
+        bx, by = (zero, zero) if bounds is None else bounds(new)
+        vals = torch.stack([bx, by, t, t_comp.to(t.device),
+                            steps.to(t.device, t.dtype)]).tolist()
+        return (*vals[:4], int(vals[4]))
 
     def keep(self):
         self.cur = self.new
@@ -672,6 +685,11 @@ class PallasCellEngine:
         self._wall_y = torch.as_tensor(scene.y, dtype=dtype,
                                        device=self.device)
         self._shear = None
+        # the chunk path's persistent buffers; False runs every sub-chunk
+        # through the stateless fused_chunk_call instead (ChunkRun: the
+        # reference the tests and chip_smoke.py hold the buffers to)
+        self.chunk_buffers = True
+        self._chunks = pc.ChunkRunner()
 
     def _rebuild(self, x, y, state_fields=()):
         out = pc.build_fused_layout(
@@ -857,6 +875,16 @@ class PallasCellEngine:
         return rb, min(rb, int(os.environ.get("SPH_SUB_STEPS", "")
                                or getattr(self.cfg, "sub_steps", 16)))
 
+    def _sub_chunk_run(self, spec, lay, carry, interval, scalars, drift,
+                       cache_slots: int = 0):
+        """A group's chunk-kernel runner: on the persistent buffers
+        (``fused_cell.BufferedChunkRun``), or with ``chunk_buffers`` off
+        through the stateless ``fused_chunk_call`` (``ChunkRun``)."""
+        if self.chunk_buffers:
+            return self._chunks.group(spec, lay, carry, interval, scalars,
+                                      drift, cache_slots)
+        return ChunkRun(spec, lay, carry, interval, scalars, cache_slots)
+
     def _run_group(self, run, bounds, interval, t_i, tc_i, sub_len, rb,
                    sub_max):
         """One sub-chunk group of the chunk design (the JAX loop over
@@ -873,23 +901,19 @@ class PallasCellEngine:
         the output point. Returns (t, t_comp, steps, rollbacks, the next
         group's sub-chunk length, an unrecoverable trip, host syncs)."""
         f = self._np_dtype
-        dev = self.device
         predict = os.environ.get("SPH_DRIFT_PREDICTOR", "1") != "0"
         sxb, syb = f(self.spec.skin_x), f(self.spec.skin_y)
         done_i, nrb, n_syncs, slen = 0, 0, 0, sub_len
         soft = guard = False
         bp = (f(0.0), f(0.0))
-        zero = torch.zeros((), dtype=self.dtype, device=dev)
         while not soft and done_i < rb and t_i < interval:
             n_sub = min(slen, rb - done_i)
-            new, steps_t, t2_t, tc2_t, syncs = run(n_sub, t_i, tc_i)
+            *got, syncs = run(n_sub, t_i, tc_i)
             n_syncs += syncs
-            bx_t, by_t = (zero, zero) if bounds is None else bounds(new)
             # the one host sync of the sub-chunk
-            vals = torch.stack([bx_t, by_t, t2_t.to(dev), tc2_t.to(dev),
-                                steps_t.to(dev, self.dtype)]).tolist()
+            *vals, steps = run.read(bounds, *got)
             n_syncs += 1
-            bx, by, t2, tc2 = (f(v) for v in vals[:4])
+            bx, by, t2, tc2 = (f(v) for v in vals)
             if bounds is not None:
                 # a genuine crossing rolls the sub-chunk back; the
                 # PREDICTIVE stop (1.5x the last increment) and the
@@ -912,7 +936,7 @@ class PallasCellEngine:
             else:
                 run.keep()
                 t_i, tc_i = t2, tc2
-                done_i += int(vals[4])
+                done_i += steps
             soft = soft2 or recov
             bp = (bx, by)
             nrb += int(recov)
@@ -965,7 +989,10 @@ class PallasCellEngine:
                       yP=cores["yH"][1:-1, :, 1:-1],
                       cnt=torch.zeros((n_groups, L), dtype=self.dtype,
                                       device=self.device))
-            run = ChunkRun(spec, lay, st, interval, scalars)
+            drift = (pc.DriftRef(lay.refx_p, lay.refy_p, lay.isf_c)
+                     if spec.skin > 0.0 else None)
+            run = self._sub_chunk_run(spec, lay, st, interval, scalars,
+                                      drift)
 
             def bounds(new, lay=lay):
                 return pc.pair_drift_bounds(spec, lay, new["xP"], new["yP"])
