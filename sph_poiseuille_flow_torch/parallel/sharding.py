@@ -876,9 +876,8 @@ class ShardedPallasEngine(PallasCellEngine):
         t_local, t_comp = f(0.0), f(0.0)
         sub_len = sub_max
         npairs = torch.as_tensor(geom, device=dev0).to(self.dtype)
-        n_steps, n_roll, n_syncs = 0, 0, 0
+        n_steps, n_roll, n_syncs, n_kept = 0, 0, 0, 0
         overflow = lay.overflow
-        guard = False
         jumped = torch.zeros((), dtype=torch.bool, device=dev0)
 
         while t_local < interval:
@@ -907,12 +906,12 @@ class ShardedPallasEngine(PallasCellEngine):
                 def bounds(new, refx=refx, refy=refy, isf=isf):
                     return self._drift_bounds(new, refx, refy, isf)
 
-            (t_local, t_comp, done_i, nrb, sub_len, trip,
-             syncs) = self._run_group(
+            (t_local, t_comp, done_i, nrb, sub_len, syncs,
+             kept) = self._run_group(
                  run, bounds if spec.skin > 0.0 else None, interval,
                  t_local, t_comp, sub_len, rb, sub_max)
-            guard = guard or trip
             n_syncs += syncs
+            n_kept += kept
             sts = (run.state() if self.n_dev > 1
                    else [self._carry_slab(run.state())])
             npairs = _psum([torch.sum(s["cnt"]) for s in sts], dev0)
@@ -951,15 +950,14 @@ class ShardedPallasEngine(PallasCellEngine):
         v_max = torch.sqrt(torch.max(new_state.vx[:nf] ** 2
                                      + new_state.vy[:nf] ** 2))
         n_pairs = torch.round(npairs).to(torch.int32)
-        guard = guard or bool(jumped)
         n_syncs += 1
         return IntervalResult(
             state=new_state, cands=lay2, geom=n_pairs, tau_bottom=tau_b,
             tau_top=tau_t, n_steps=n_steps,
             overflow=torch.logical_or(overflow, lay2.overflow),
-            skin_guard=guard, v_max=v_max, n_pairs=n_pairs,
+            skin_guard=bool(jumped), v_max=v_max, n_pairs=n_pairs,
             n_rollbacks=n_roll, t_local=t_local, t_comp=t_comp,
-            sub_len=sub_len, n_syncs=n_syncs)
+            sub_len=sub_len, n_syncs=n_syncs, n_kept_crossings=n_kept)
 
     def _one_step(self, sts, stat_h, occl, t, tc, consts):
         """One step of every slab (JAX sharding.py:496-527): v_max over the

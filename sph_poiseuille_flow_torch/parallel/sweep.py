@@ -22,6 +22,12 @@ With ``paths`` every lane gets the single run's driver surface: a
 signature-guarded restart at every output point (``_lane{k}``; resumed
 under ``restart_from_file``), the monitor series, and a postprocess
 handoff npz (+ both figures where matplotlib is installed).
+
+The fused path is traced as a single run is: each lane is a
+``sph_sweep_lane`` range and each of its output intervals a
+``utils/profile.interval_range``, so ``--profile`` summarises a sweep
+interval by interval; ``SWEEP_COUNTS`` counts its lanes, output points,
+steps and the host seconds the lane loop spends outside the engine.
 """
 
 from __future__ import annotations
@@ -40,9 +46,29 @@ from ..models.poiseuille import Scene, build_scene
 from ..stepper import State, initial_state, make_engine, resolve_engine_name
 from ..utils import checkpoint
 from ..utils import postprocess as pp
+from ..utils.profile import interval_range
 
 _RESTART_FIELDS = ("x", "y", "vx", "vy", "rho", "p", "drho_dt", "fx", "fy",
                    "fpx", "fpy")
+
+# the range that marks one lane of the fused sweep in a capture
+LANE = "sph_sweep_lane"
+
+# the fused sweep's lane loop (``_run_lane_seq``): lanes opened, output
+# points, steps, and host seconds on ``time.perf_counter`` (no sync of its
+# own) spent outside ``engine.run_interval`` and its closing sync: from
+# entering a lane to its first interval (``open_s``: the lane config, the
+# monitor and its first sample, the resume check) and at the output points
+# (``point_s``: the next interval's opening sync, the flag and v_max reads,
+# the monitor sample, a restart write), an ``on_interval`` hook's time
+# left out
+SWEEP_COUNTS = {"lanes": 0, "points": 0, "lane_steps": 0, "open_s": 0.0,
+                "point_s": 0.0}
+
+
+def reset_sweep_counts() -> None:
+    for k in SWEEP_COUNTS:
+        SWEEP_COUNTS[k] = type(SWEEP_COUNTS[k])(0)
 
 
 def make_workloads(cfg: SPHConfig, mus: Sequence[float]):
@@ -210,7 +236,8 @@ def _run_lanes(cfg: SPHConfig, engine, scene: Scene, state0, lay0, geom0,
 
 
 def _run_lane_seq(cfg: SPHConfig, engine, scene: Scene, state0, lay0, geom0,
-                  g_k: float, mu_k: float, log, paths=None, lane_k: int = 0):
+                  g_k: float, mu_k: float, log, paths=None, lane_k: int = 0,
+                  on_interval=None):
     """Advance ONE workload to cfg.end_time on the shared fused engine,
     with the lane's (g, mu) as run-time kernel arguments. Returns (final
     state, steps run here, wall seconds, monitor).
@@ -218,52 +245,69 @@ def _run_lane_seq(cfg: SPHConfig, engine, scene: Scene, state0, lay0, geom0,
     With ``paths`` the lane gets the single run's driver surface: a
     signature-guarded restart every output point (resumed under
     ``cfg.restart_from_file``, so a failed sweep re-runs only unfinished
-    work) and the monitor series for its postprocess handoff."""
-    f = np.dtype(cfg.dtype).type
-    cfg_k = _lane_cfg(cfg, g_k, mu_k)
-    state, lay, geom = state0, lay0, geom0
-    t = 0.0
-    steps = 0
-    restart_path = _lane_path(paths.restart, lane_k) if paths else None
-    if restart_path and cfg.restart_from_file:
-        got = _resume_state(cfg_k, scene, engine, state0, restart_path, log,
-                            f"lane {lane_k}")
-        if got is not None:
-            state, lay, geom, t, steps = got
-            log(f"  lane {lane_k}: resuming from t={t:.6f}")
-    mon = _LaneMonitor(cfg_k, scene.n_fluid)
-    mon.sample(t, state)
-    wall = 0.0
-    steps_run = 0   # steps executed in this call (throughput denominator)
-    v_max = float("nan")
-    eps = 1e-9
-    while t < cfg.end_time - eps:
-        target = min(t + cfg.output_interval, cfg.end_time)
-        _sync(engine.device)
-        t0 = time.perf_counter()
-        res = engine.run_interval(state, lay, geom, f(target - t),
-                                  float(g_k), float(mu_k))
-        _sync(engine.device)
-        wall += time.perf_counter() - t0
-        if bool(res.overflow):
-            raise RuntimeError("neighbor cell capacity exceeded in sweep")
-        if bool(res.skin_guard):
-            raise RuntimeError("neighbor skin guard tripped in sweep; "
-                               "reduce rebuild_every")
-        v_max = float(res.v_max)
-        if not np.isfinite(v_max):
-            raise RuntimeError(f"lane {lane_k}: non-finite velocities in "
-                               f"the interval ending t={target:.6f}")
-        state, lay, geom = res.state, res.cands, res.geom
-        steps += res.n_steps
-        steps_run += res.n_steps
-        t = target
-        if restart_path:
-            checkpoint.save_restart(restart_path, cfg_k.signature, state,
-                                    t, steps)
+    work) and the monitor series for its postprocess handoff.
+    ``on_interval(lane_k, prev, res)`` is called as each output interval's
+    ``engine.run_interval`` returns (synchronised), before the lane's flag
+    checks: ``prev`` is the (state, layout, geometry) the interval started
+    from, ``res`` its ``IntervalResult``."""
+    t_mark = time.perf_counter()
+    with torch.profiler.record_function(LANE):
+        f = np.dtype(cfg.dtype).type
+        cfg_k = _lane_cfg(cfg, g_k, mu_k)
+        state, lay, geom = state0, lay0, geom0
+        t = 0.0
+        steps = 0
+        restart_path = _lane_path(paths.restart, lane_k) if paths else None
+        if restart_path and cfg.restart_from_file:
+            got = _resume_state(cfg_k, scene, engine, state0, restart_path,
+                                log, f"lane {lane_k}")
+            if got is not None:
+                state, lay, geom, t, steps = got
+                log(f"  lane {lane_k}: resuming from t={t:.6f}")
+        mon = _LaneMonitor(cfg_k, scene.n_fluid)
         mon.sample(t, state)
-        log(f"  lane {lane_k} output point t={t:.3f}: "
-            f"steps={res.n_steps}, vmax={v_max:.4f}")
+        SWEEP_COUNTS["lanes"] += 1
+        host = "open_s"
+        wall = 0.0
+        steps_run = 0   # steps executed in this call (throughput denominator)
+        v_max = float("nan")
+        eps = 1e-9
+        while t < cfg.end_time - eps:
+            target = min(t + cfg.output_interval, cfg.end_time)
+            _sync(engine.device)
+            t0 = time.perf_counter()
+            SWEEP_COUNTS[host] += t0 - t_mark
+            host = "point_s"
+            with interval_range():
+                res = engine.run_interval(state, lay, geom, f(target - t),
+                                          g=float(g_k), mu=float(mu_k))
+                _sync(engine.device)
+            t_mark = time.perf_counter()
+            wall += t_mark - t0
+            if on_interval is not None:
+                on_interval(lane_k, (state, lay, geom), res)
+                t_mark = time.perf_counter()
+            if bool(res.overflow):
+                raise RuntimeError("neighbor cell capacity exceeded in sweep")
+            v_max = float(res.v_max)
+            if not np.isfinite(v_max):
+                raise RuntimeError(f"lane {lane_k}: non-finite velocities in "
+                                   f"the interval ending t={target:.6f}")
+            state, lay, geom = res.state, res.cands, res.geom
+            steps += res.n_steps
+            steps_run += res.n_steps
+            SWEEP_COUNTS["points"] += 1
+            SWEEP_COUNTS["lane_steps"] += int(res.n_steps)
+            t = target
+            if restart_path:
+                checkpoint.save_restart(restart_path, cfg_k.signature, state,
+                                        t, steps)
+            mon.sample(t, state)
+            kept = (f", {res.n_kept_crossings} one-step drift crossing(s) "
+                    f"kept" if res.n_kept_crossings else "")
+            log(f"  lane {lane_k} output point t={t:.3f}: "
+                f"steps={res.n_steps}, vmax={v_max:.4f}{kept}")
+        SWEEP_COUNTS[host] += time.perf_counter() - t_mark
     log(f"  lane done: mu={mu_k:g} steps={steps} vmax={v_max:.4f} "
         f"wall={wall:.1f}s")
     return state, steps_run, wall, mon

@@ -176,12 +176,18 @@ def main(argv=None) -> int:
         parser.error(str(e))
 
     paths = SimulationPaths.from_env(args.base_dir)
+    if args.profile:
+        from .utils.profile import traced
+        capture = traced(args.profile, torch.device(args.device))
+    else:
+        capture = contextlib.nullcontext()
     if args.sweep_mus:
         from .parallel import make_workloads, run_sweep
         mus = [float(v) for v in args.sweep_mus.split(",") if v.strip()]
         gs, mus = make_workloads(cfg, mus)
-        out = run_sweep(cfg, gs, mus, lane_chunk=args.sweep_lane_chunk,
-                        paths=paths, device=args.device)
+        with capture:
+            out = run_sweep(cfg, gs, mus, lane_chunk=args.sweep_lane_chunk,
+                            paths=paths, device=args.device)
         for k, (mu_k, l2_k) in enumerate(zip(mus, out["l2_errors"])):
             print(f"workload {k}: mu={mu_k:g} L2={100 * l2_k:.3f}%"
                   f" {'PASS' if l2_k < 0.05 else 'FAIL'}")
@@ -189,11 +195,6 @@ def main(argv=None) -> int:
               f"particle-steps/sec (sum over lanes)")
         return 0 if bool((out["l2_errors"] < 0.05).all()) else 1
 
-    if args.profile:
-        from .utils.profile import traced
-        capture = traced(args.profile, torch.device(args.device))
-    else:
-        capture = contextlib.nullcontext()
     with capture:
         result = Simulation(cfg, paths, device=args.device,
                             mesh_devices=args.mesh).run()

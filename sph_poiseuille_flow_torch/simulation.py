@@ -186,8 +186,7 @@ class Simulation:
         t_loc = fdtype.type(0.0)
         t_cmp = fdtype.type(0.0)
         total = 0
-        n_roll = 0
-        n_sync = 0
+        n_roll = n_sync = n_kept = 0
         sub_len = None
         while True:
             kw = {} if sub_len is None else {"sub_len0": sub_len}
@@ -200,6 +199,7 @@ class Simulation:
             sub_len = res.sub_len
             n_roll += int(res.n_rollbacks)
             n_sync += res.n_syncs
+            n_kept += res.n_kept_crossings
             state, cands, geom = res.state, res.cands, res.geom
             t_loc, t_cmp = res.t_local, res.t_comp
             if bool(res.overflow) or bool(res.skin_guard):
@@ -207,7 +207,8 @@ class Simulation:
             if float(t_loc) >= float(il) or k == 0:
                 break
         self.host_syncs += n_sync
-        return res._replace(n_rollbacks=n_roll, n_syncs=n_sync), total
+        return res._replace(n_rollbacks=n_roll, n_syncs=n_sync,
+                            n_kept_crossings=n_kept), total
 
     # ---- main entry ----
     def run(self) -> dict:
@@ -262,16 +263,21 @@ class Simulation:
                     f"ending t={target:.6f}; increase cell_capacity")
             if bool(res.skin_guard):
                 raise RuntimeError(
-                    f"neighbor drift guard: a SINGLE step straight out "
-                    f"of a rebuild crossed a per-axis drift budget "
-                    f"during interval ending t={target:.6f} -- rollback "
-                    f"backoff cannot recover this (divergence, or a "
-                    f"skin far too small for one step's motion); "
-                    f"increase neighbor_skin or check the dt criteria")
+                    f"neighbor drift guard: a single step moved "
+                    f"particles past what their neighbor candidates "
+                    f"cover during interval ending t={target:.6f} "
+                    f"(divergence, or a skin far too small for one "
+                    f"step's motion); increase neighbor_skin or check "
+                    f"the dt criteria")
             if int(res.n_rollbacks) > 0:
                 self.log(
                     f"  [drift-guard] {int(res.n_rollbacks)} sub-chunk "
                     f"rollback(s) in interval ending t={target:.6f}")
+            if res.n_kept_crossings > 0:
+                self.log(
+                    f"  [drift-guard] {res.n_kept_crossings} one-step "
+                    f"crossing(s) of the drift budget kept (a rebuild "
+                    f"after each) in interval ending t={target:.6f}")
             if not np.isfinite(float(res.v_max)):
                 raise RuntimeError(
                     f"simulation diverged (non-finite velocities) in the "

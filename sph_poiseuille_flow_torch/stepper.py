@@ -109,7 +109,13 @@ class IntervalResult(NamedTuple):
     tau_top: torch.Tensor
     n_steps: int
     overflow: torch.Tensor      # bool: cell-capacity overflow
-    skin_guard: bool            # single-step drift-budget crossing
+    # The per-step paths' single-step displacement guard and the mesh's
+    # slab-row jump. The fused chunk path never sets it, where the JAX
+    # package's flags a one-step sub-chunk straight out of a rebuild that
+    # crosses the drift budget: that step cannot miss a pair
+    # (``PallasCellEngine._run_group``), so it is kept and counted in
+    # ``n_kept_crossings``; a diverging run stops on non-finite values.
+    skin_guard: bool
     v_max: torch.Tensor
     n_pairs: torch.Tensor
     n_rollbacks: int = 0
@@ -117,6 +123,7 @@ class IntervalResult(NamedTuple):
     t_comp: Optional[np.floating] = None
     sub_len: Optional[int] = None
     n_syncs: int = 0            # host syncs the interval took
+    n_kept_crossings: int = 0   # fused: one-step crossings kept (above)
     # step_log_every > 0 only: (STEP_LOG_CAP, STEP_LOG_COLS) host rows and
     # the number of rows due (rows past the cap are counted, not kept)
     step_log: Optional[np.ndarray] = None
@@ -897,14 +904,21 @@ class PallasCellEngine:
         engine's float type: a genuine crossing rolls the sub-chunk back
         (not kept; the next is half as long), the predictive stop (1.5x the
         last increment) and the 3/4-consumed floor end the group before
-        one; else ``run.keep()``. The group also ends at ``rb`` steps or
-        the output point. Returns (t, t_comp, steps, rollbacks, the next
-        group's sub-chunk length, an unrecoverable trip, host syncs)."""
+        one; else ``run.keep()``. A crossing by a one-step sub-chunk
+        straight out of a rebuild is no trip: every pair term of a step is
+        taken at the positions it starts from, on which the candidates
+        were built, so it cannot have missed a pair (the particle shifting
+        alone moves a compressed cluster's particles ~0.2 dp apiece in one
+        step); it is kept and the group ends on the rebuild its bounds
+        call for (the JAX package flags it instead). The group also ends at
+        ``rb`` steps or the output point. Returns (t, t_comp, steps,
+        rollbacks, the next group's sub-chunk length, host syncs, kept
+        one-step crossings)."""
         f = self._np_dtype
         predict = os.environ.get("SPH_DRIFT_PREDICTOR", "1") != "0"
         sxb, syb = f(self.spec.skin_x), f(self.spec.skin_y)
-        done_i, nrb, n_syncs, slen = 0, 0, 0, sub_len
-        soft = guard = False
+        done_i, nrb, n_syncs, n_kept, slen = 0, 0, 0, 0, sub_len
+        soft = False
         bp = (f(0.0), f(0.0))
         while not soft and done_i < rb and t_i < interval:
             n_sub = min(slen, rb - done_i)
@@ -928,9 +942,9 @@ class PallasCellEngine:
                     soft2 = bool(trip)
             else:
                 soft2, trip = True, False
-            unrecoverable = n_sub == 1 and done_i == 0
-            recov = bool(trip) and not unrecoverable
-            guard = guard or (bool(trip) and unrecoverable)
+            one_step = n_sub == 1 and done_i == 0
+            recov = bool(trip) and not one_step
+            n_kept += int(bool(trip) and one_step)
             if recov:
                 slen = max(n_sub // 2, 1)
             else:
@@ -942,7 +956,7 @@ class PallasCellEngine:
             nrb += int(recov)
         # a trip-free group earns the next group a doubled sub-chunk
         sub_len = min(2 * slen, sub_max) if nrb == 0 else slen
-        return t_i, tc_i, done_i, nrb, sub_len, guard, n_syncs
+        return t_i, tc_i, done_i, nrb, sub_len, n_syncs, n_kept
 
     def run_interval(self, state: State, lay, geom, interval_len,
                      g=None, mu=None, max_steps=None, t_local0=None,
@@ -979,9 +993,8 @@ class PallasCellEngine:
         cores = self._scatter_all(lay, state)
         pidx_e, hidx_e = lay.pidx, lay.hidx
         npairs = torch.as_tensor(geom, device=self.device).to(torch.int32)
-        n_steps, n_roll, n_syncs = 0, 0, 0
+        n_steps, n_roll, n_syncs, n_kept = 0, 0, 0, 0
         overflow = lay.overflow
-        guard = False
 
         while t_local < interval and (max_steps is None
                                       or n_steps < int(max_steps)):
@@ -997,12 +1010,12 @@ class PallasCellEngine:
             def bounds(new, lay=lay):
                 return pc.pair_drift_bounds(spec, lay, new["xP"], new["yP"])
 
-            (t_local, t_comp, done_i, nrb, sub_len, trip,
-             syncs) = self._run_group(
+            (t_local, t_comp, done_i, nrb, sub_len, syncs,
+             kept) = self._run_group(
                  run, bounds if spec.skin > 0.0 else None, interval,
                  t_local, t_comp, sub_len, rb, sub_max)
-            guard = guard or trip
             n_syncs += syncs
+            n_kept += kept
             st = run.state()
 
             new_lay, rebuilt = self._do_rebuild(lay, st)
@@ -1040,9 +1053,9 @@ class PallasCellEngine:
         return IntervalResult(
             state=state, cands=lay, geom=npairs, tau_bottom=tau_b,
             tau_top=tau_t, n_steps=n_steps, overflow=overflow,
-            skin_guard=guard, v_max=v_max, n_pairs=npairs,
+            skin_guard=False, v_max=v_max, n_pairs=npairs,
             n_rollbacks=n_roll, t_local=t_local, t_comp=t_comp,
-            sub_len=sub_len, n_syncs=n_syncs)
+            sub_len=sub_len, n_syncs=n_syncs, n_kept_crossings=n_kept)
 
 
 def resolve_engine_name(cfg: SPHConfig, scene: Scene = None) -> str:

@@ -1,10 +1,12 @@
 """The port's fused engine (plain twins on the CPU) against the JAX
 package: ``init`` and one short interval against the XLA ``CellEngine``
 (tests/test_pallas.py:48-95), the drift-guard rollback with the predictor
-off (tests/test_drift_guard.py:86), and split dispatch bit-equal to the
-unsplit interval inside the port (tests/test_split_dispatch.py:68)."""
+off (tests/test_drift_guard.py:86), the group loop's handling of a
+crossing, and split dispatch bit-equal to the unsplit interval inside the
+port (tests/test_split_dispatch.py:68)."""
 
 import dataclasses
+import types
 
 import numpy as np
 import pytest
@@ -120,6 +122,47 @@ def test_interval_counts_host_syncs(intervals):
     step is a sub-chunk of its own."""
     _, tr = intervals
     assert tr.n_syncs == tr.n_steps
+
+
+class _CrossingRun:
+    """A sub-chunk runner each of whose sub-chunks crosses the y budget
+    (1.2x it), one step a 1e-4 s."""
+
+    def __init__(self):
+        self.calls, self.kept = [], 0
+
+    def __call__(self, n_sub, t, t_comp):
+        self.calls.append(n_sub)
+        return None, n_sub, np.float32(t + 1e-4 * n_sub), t_comp, 1
+
+    def read(self, bounds, new, steps, t, t_comp):
+        return np.float32(0.0), np.float32(1.2e-3), t, t_comp, steps
+
+    def keep(self):
+        self.kept += 1
+
+
+@pytest.mark.parametrize("sub_len,steps,kept,rollbacks,next_len", [
+    (1, 1, 1, 0, 2),    # one step straight out of the rebuild: kept
+    (4, 0, 0, 1, 2),    # a longer sub-chunk: rolled back, halved
+])
+def test_group_crossing(sub_len, steps, kept, rollbacks, next_len):
+    """A drift-budget crossing ends the group. A one-step sub-chunk
+    straight out of a rebuild cannot have missed a pair (its pair terms
+    are taken at the positions the candidates were built from), so it is
+    kept and counted, with no rollback and no flag; a longer one is rolled
+    back, not counted, and the next group's sub-chunk is half as long."""
+    eng = types.SimpleNamespace(
+        _np_dtype=np.float32,
+        spec=types.SimpleNamespace(skin_x=1e-3, skin_y=1e-3))
+    run = _CrossingRun()
+    t, _, done, nrb, nxt, syncs, n_kept = PallasCellEngine._run_group(
+        eng, run, lambda new: None, np.float32(0.5), np.float32(0.0),
+        np.float32(0.0), sub_len, 128, 16)
+    assert run.calls == [sub_len]
+    assert (done, run.kept, n_kept, nrb, nxt, syncs) == (
+        steps, kept, kept, rollbacks, next_len, 2)
+    assert t == np.float32(1e-4 * steps)
 
 
 def test_rollback_with_predictor_off(monkeypatch):
