@@ -64,7 +64,8 @@ Phases, each of which exits non-zero on failure before the last line:
    0.1 s in float32 and in float64, the packed-gather engine of plain
    torch ops (``stepper.Engine``; no kernel may launch). The launch
    counts are reset to 0 before each run and each kernel of the form the
-   run selects must be nonzero after it;
+   run selects (with the rebuild, ``fused_rebuild``, in the chunk path's
+   runs) must be nonzero after it;
 3b. the cell-layout engine (``CellEngine``) on the card over 0.05 s of
    ``config.ini``: in float32 against the fused engine (the same steps,
    every field within the tolerances of tests/test_pallas.py:63-72), in
@@ -145,7 +146,22 @@ Phases, each of which exits non-zero on failure before the last line:
    drift kernel against ``pair_drift_bounds`` bit for bit (or both NaN)
    after a 4-step run: on the layout's references, on references with an
    all-empty 2 x 2 block of cells, and with a NaN velocity in one fluid
-   slot (a NaN position); ``CHUNK_BUFFERS`` printed.
+   slot (a NaN position); ``CHUNK_BUFFERS`` printed. With the chunk
+   buffers the rebuilds run on the layout sets (``sph_rebuild``), so (i)
+   holds them too: ``LAUNCHES`` equal but for ``fused_rebuild``, one a
+   group, and ``REBUILD_BUFFERS`` one key's sets, one run a group
+   (printed); and an interval's ``cands`` and state unchanged after two
+   more intervals have run;
+10. the rebuild on persistent layout sets (``fused_cell.BufferedRebuild``,
+   ``sph_rebuild``) against ``PallasCellEngine._do_rebuild`` at the
+   benchmark's two grids, bit for bit in every array of the layout and
+   the carry (``pidx``, ``hidx``, the static cores, ``refx``/``refy``,
+   ``occ``, the overflow flag, xH, yH, vxH, vyH, drP), the pair count and
+   the interval's overflow: from a 4-step chunk's kept state and from a
+   group's carry (nothing kept); with one cell crowded past K (inside the
+   bucket of ids the kernel keeps a cell) and one past the bucket, both
+   flagging overflow; and again from the crowded layout, whose overflowed
+   particles take the sentinel index.
 
 Prints the card's name and power limit, a ``{"kernels": [...]}`` line
 (each kernel with its time, its plain version's and the least time the
@@ -919,7 +935,9 @@ RUNS_B = (("b", [], "_cache"), ("b_none", ["--geom-cache", "none"], ""),
 
 def _launched(run: str, counts: dict, want: set) -> None:
     """Each kernel in ``want`` ran in the run, and no other form of the
-    step or the chunk did: no form gives way to another."""
+    step or the chunk did: no form gives way to another. A run of the
+    chunk path also launches the rebuild between its groups
+    (``fused_rebuild``); the per-step path does not."""
     for k, v in counts.items():
         if k in want and v <= 0:
             raise AssertionError(f"main ({run}): kernel {k} was never "
@@ -949,7 +967,7 @@ def phase_main() -> dict:
     if not math.isfinite(ra["tau_bottom"]):
         raise AssertionError("(a) config.ini: non-finite tau")
     _launched("a", counts["a"], {"fused_step_cache", "fused_chunk_cache",
-                                 "fused_wall_shear"})
+                                 "fused_wall_shear", "fused_rebuild"})
 
     # (b) the dp=0.01 channel with the shipping knobs, a few tenths of s,
     # in each form a user can select
@@ -993,7 +1011,7 @@ def phase_main() -> dict:
                                  f"overshoots tau_target {tau_target}")
         _launched(name, counts[name], {"fused_step" + suffix,
                                        "fused_chunk" + suffix,
-                                       "fused_wall_shear"})
+                                       "fused_wall_shear", "fused_rebuild"})
 
     # (c) the per-step log path: config.ini for 0.05 s, a row every 10
     fcc.reset_launch_counts()
@@ -1398,10 +1416,45 @@ def _runner_drift(device, label: str, cfg, scene, s0) -> None:
                                  "gave a finite bound")
 
 
+def _counted_rebuilds(eng) -> list:
+    """Count ``eng``'s ``_do_rebuild`` calls (the stateless path's
+    groups) in the one-element list returned."""
+    calls, plain = [0], eng._do_rebuild
+
+    def counted(*a):
+        calls[0] += 1
+        return plain(*a)
+
+    eng._do_rebuild = counted
+    return calls
+
+
+def _snapshot(r) -> dict:
+    """Copies of what an ``IntervalResult`` hands its caller: the state,
+    every tensor of ``cands``, ``geom``."""
+    import torch
+    out = {f"state.{k}": v.clone() for k, v in r.state._asdict().items()}
+    # shear_tbt is the wall shear's scratch, which every layout of an
+    # engine shares and every shear call rewrites
+    out.update({f"cands.{k}": v.clone() for k, v in r.cands._asdict().items()
+                if torch.is_tensor(v) and k != "shear_tbt"})
+    out["geom"] = r.geom.clone()
+    return out
+
+
+def _unchanged(what: str, r, snap: dict) -> None:
+    now = _snapshot(r)
+    bad = [k for k in snap if not _bit_equal(snap[k], now[k])]
+    if bad:
+        raise AssertionError(f"{what}: {bad} changed after later intervals")
+
+
 def phase_runner(device) -> dict:
     """9. The chunk path on persistent buffers against the stateless
     path, bit for bit, at the benchmark's two grids, with and without
-    forced rollbacks; the drift kernel against ``pair_drift_bounds``."""
+    forced rollbacks (the rebuild on its layout sets with it); the drift
+    kernel against ``pair_drift_bounds``; an interval's result unchanged
+    by later intervals."""
     import numpy as np
     import torch
     from sph_poiseuille_flow_torch.ops import fused_cell_cuda as fcc
@@ -1422,35 +1475,169 @@ def phase_runner(device) -> dict:
                 for buffered in (False, True):
                     eng = PallasCellEngine(cfg, scene, device)
                     eng.chunk_buffers = buffered
+                    groups = _counted_rebuilds(eng)
                     s, lay, geom, _ = eng.init(s0)
                     fcc.reset_launch_counts()
                     r = eng.run_interval(s, lay, geom, np.float32(0.5),
                                          max_steps=RUNNER_STEPS)
                     torch.cuda.synchronize()
                     res.append((r, dict(fcc.LAUNCHES),
-                                dict(fcc.CHUNK_BUFFERS)))
+                                dict(fcc.CHUNK_BUFFERS),
+                                dict(fcc.REBUILD_BUFFERS), groups[0], eng))
+                    if buffered:
+                        # what the call handed back is the caller's: two
+                        # more intervals leave it as it was
+                        snap = _snapshot(r)
+                        r3 = r
+                        for _ in range(2):
+                            r3 = eng.run_interval(r3.state, r3.cands,
+                                                  r3.geom, np.float32(0.5),
+                                                  max_steps=RUNNER_STEPS)
+                        torch.cuda.synchronize()
+                        _unchanged(f"runner {conf} {case}", r, snap)
             finally:
                 if old is None:
                     os.environ.pop("SPH_DRIFT_PREDICTOR", None)
                 else:
                     os.environ["SPH_DRIFT_PREDICTOR"] = old
-            (r1, l1, _), (r2, l2, cb) = res
+            (r1, l1, _, _, n_groups, _), (r2, l2, cb, rb, plain, _) = res
             what = f"runner {conf} {case}"
             _same_interval(what, r1, r2)
-            if l1 != l2:
+            l2_rest = dict(l2, fused_rebuild=l1["fused_rebuild"])
+            if l1 != l2_rest or l2["fused_rebuild"] != n_groups:
                 raise AssertionError(f"{what}: launches {l2} against the "
-                                     f"stateless path's {l1}")
+                                     f"stateless path's {l1} and "
+                                     f"{n_groups} groups")
             if case == "rollback" and r2.n_rollbacks == 0:
                 raise AssertionError(f"{what}: no sub-chunk rolled back")
             if cb["sets_built"] != 1 or cb["runs"] != r2.n_syncs:
                 raise AssertionError(f"{what}: CHUNK_BUFFERS {cb}, "
                                      f"{r2.n_syncs} host syncs")
+            if rb["sets_built"] != 1 or rb["runs"] != n_groups or plain:
+                raise AssertionError(f"{what}: REBUILD_BUFFERS {rb}, "
+                                     f"{n_groups} groups, {plain} plain "
+                                     "rebuilds")
             _say(f"{what}: bit-equal, steps={r2.n_steps} "
                  f"rollbacks={r2.n_rollbacks} syncs={r2.n_syncs} "
-                 f"CHUNK_BUFFERS={cb}")
+                 f"groups={n_groups} CHUNK_BUFFERS={cb} "
+                 f"REBUILD_BUFFERS={rb}; cands and state unchanged after "
+                 "two more intervals")
             out[f"{conf}:{case}"] = dict(steps=r2.n_steps,
                                          rollbacks=r2.n_rollbacks,
-                                         syncs=r2.n_syncs, **cb)
+                                         syncs=r2.n_syncs, groups=n_groups,
+                                         **cb, rebuild_runs=rb["runs"],
+                                         rebuild_sets_built=rb["sets_built"])
+    return out
+
+
+def _bit_equal(a, b) -> bool:
+    """Equal arrays, floats bit for bit (-0 apart from +0, NaN payloads)."""
+    import torch
+    if a.dtype != b.dtype or a.shape != b.shape:
+        return False
+    if a.dtype == torch.float32:
+        a, b = a.contiguous().view(torch.int32), b.contiguous().view(
+            torch.int32)
+    return torch.equal(a, b)
+
+
+def _crowd(st, lay, ids, kept: bool, where):
+    """``st`` with the particles ``ids`` moved to the point ``where`` (x,
+    y): in the plain position cores of a kept state, else in the carry's
+    halo'd ones (centres)."""
+    x, y = ("xP", "yP") if kept else ("xH", "yH")
+    idx = lay.pidx[ids] if kept else lay.hidx[ids]
+    out = dict(st, **{x: st[x].clone(), y: st[y].clone()})
+    out[x].view(-1)[idx] = where[0]
+    out[y].view(-1)[idx] = where[1]
+    return out
+
+
+def _rebuild_case(what, eng, sets, lay, st, kept: bool):
+    """One rebuild both ways, compared bit for bit; returns the two
+    (layout, carry) pairs and the overflow."""
+    import torch
+    ref_st = st if kept else dict(st, xP=st["xH"][1:-1, :, 1:-1],
+                                  yP=st["yH"][1:-1, :, 1:-1])
+    ref_lay, ref_carry = eng._do_rebuild(lay, ref_st)
+    # twice the kept pair count (the per-slot counts are multiples of 1/2)
+    want2 = 2.0 * float(torch.sum(st["cnt"])) if kept else 0.0
+    first = sets.first
+    got_lay, got_carry, _ = sets(lay, st, kept)
+    torch.cuda.synchronize()
+    bad = [f for f in ("pidx", "hidx", "isf_c", "mass_c", "wvx_c", "wvy_c",
+                       "wbot_c", "wtop_c", "refx_p", "refy_p", "occ",
+                       "overflow")
+           if not _bit_equal(getattr(ref_lay, f), getattr(got_lay, f))]
+    bad += [k for k in ("xH", "yH", "vxH", "vyH", "drP")
+            if not _bit_equal(ref_carry[k], got_carry[k])]
+    if int(sets.bufs.pairs2) != want2:
+        bad.append(f"twice the pairs {int(sets.bufs.pairs2)} against "
+                   f"{want2}")
+    if first and bool(sets.bufs.overflow_any) != bool(ref_lay.overflow):
+        bad.append("overflow_any")
+    if bad:
+        raise AssertionError(f"{what}: sph_rebuild differs from _do_rebuild "
+                             f"in {bad}")
+    return (ref_lay, ref_carry), (got_lay, got_carry), bool(ref_lay.overflow)
+
+
+def phase_rebuild(device) -> dict:
+    """10. The rebuild on the layout sets against ``_do_rebuild``, bit for
+    bit, at the benchmark's two grids: from a kept state and from a
+    carry, with cells crowded past K and past the kernel's bucket, and
+    from the crowded layout."""
+    import numpy as np
+    import torch
+    from sph_poiseuille_flow_torch.ops import fused_cell_cuda as fcc
+    from sph_poiseuille_flow_torch.stepper import PallasCellEngine
+
+    out = {}
+    for conf in ("channel-dp0.01", "channel-dp0.005"):
+        cfg, scene, s0 = _developed(conf, device)
+        eng = PallasCellEngine(cfg, scene, device)
+        s, lay, _, _ = eng.init(s0)
+        spec = eng.spec
+        cores = eng._scatter_all(lay, s)
+        scalars = (cfg.rho0, cfg.p0, cfg.c_f, cfg.inv_sigma0,
+                   cfg.transport_coeff, cfg.gravity_g, cfg.mu,
+                   cfg.wall_visc_factor)
+        run = eng._chunks.group(spec, lay, cores, np.float32(0.5), scalars)
+        run(4, np.float32(0.0), np.float32(0.0))
+        run.keep()
+        kept_st = run.cur
+        K = spec.K
+        cap = fcc.REBUILD_CAP_PER_K * K
+        # a cell in the middle of the channel, its centre
+        cx, cy = spec.nx // 2, spec.ny // 2
+        where = ((cx + 0.5) * spec.cell_x, spec.y0 + (cy + 0.5) * spec.cell_y)
+        n_cases = 0
+        for kept, st in ((True, kept_st), (False, cores)):
+            for crowd in (0, K + 2, cap + K):
+                sets = eng._rebuilds.interval(spec, cores,
+                                              eng._layout_statics(),
+                                              eng._shear, eng._do_rebuild)
+                st_c = _crowd(st, lay, torch.arange(crowd, device=device),
+                              kept, where) if crowd else st
+                what = f"rebuild {conf} kept={kept} crowd={crowd}"
+                (ref_lay, ref_c), (got_lay, got_c), ovf = _rebuild_case(
+                    what, eng, sets, lay, st_c, kept)
+                n_cases += 1
+                if bool(ovf) != (crowd > K):
+                    raise AssertionError(f"{what}: overflow {ovf}")
+                if crowd:
+                    # again from the crowded layout, its overflowed
+                    # particles at the sentinel index
+                    aux = {k: cores[k] for k in ("rhoP", "pP", "fxP", "fyP",
+                                                 "fpxP", "fpyP", "volH",
+                                                 "b11H", "b12H", "b21H",
+                                                 "b22H")}
+                    _rebuild_case(what + " again", eng, sets, ref_lay,
+                                  dict(ref_c, **aux), False)
+                    n_cases += 1
+                _say(f"{what}: bit-equal (overflow {ovf}; a second rebuild "
+                     f"from it too)" if crowd else f"{what}: bit-equal")
+        out[conf] = dict(cases=n_cases, cap=cap, K=K)
     return out
 
 
@@ -1547,7 +1734,7 @@ def phase_sweep(device) -> dict:
         if len(v) != 2 or not 0 < v[0] < v[1]:
             raise AssertionError(f"sweep (i) lane {k}: v_max not rising: {v}")
     _launched("sweep", counts, {"fused_step_cache", "fused_chunk_cache",
-                                "fused_wall_shear"})
+                                "fused_wall_shear", "fused_rebuild"})
     cfg, gs, mus = seen["cfg"], seen["gs"], seen["mus"]
     for k in SWEEP_EQUAL:
         # the config's own workload runs from the config as a user gives
@@ -2301,6 +2488,7 @@ def main() -> int:
         main_res["counts"].update(mesh["counts"])
         oracle = phase_oracle(device)
         runner = phase_runner(device)
+        rebuild = phase_rebuild(device)
         _say(f"all phases done in {time.perf_counter() - t0:.1f} s")
     except Exception:
         traceback.print_exc()
@@ -2343,6 +2531,7 @@ def main() -> int:
                                if k != "counts"}}))
     print(json.dumps({"native_oracle": oracle}))
     print(json.dumps({"chunk_runner": runner}))
+    print(json.dumps({"rebuild": rebuild}))
     for run, r in main_res["runs"].items():
         print(json.dumps({"run": run, "L2_error": r["L2_error"],
                           "steps": r["step"], "t": r["t"],

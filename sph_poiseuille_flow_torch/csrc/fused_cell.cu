@@ -22,6 +22,16 @@
 //        the host reads after one synchronize.
 //   * pair_drift_bounds (fused_cell.py:1786-1849; plain torch in the port's
 //     ops/fused_cell.py, XLA on the TPU) -> drift_cells, drift_windows.
+//   * no TPU kernel: the interval loop's rebuild between sub-chunk groups
+//     (XLA on the TPU: the take back to particle order, the stable sort
+//     of build_fused_layout's slot assignment and its packed scatter),
+//     torch glue of some 300 host calls in the port's
+//     stepper.PallasCellEngine._do_rebuild, which stays the reference.
+//     -> sph_rebuild: the same layout and carry written straight into a
+//        persistent layout set (fused_cell_cuda.RebuildBuffers) by one
+//        memset and three kernels (rebuild_gather, rebuild_slots,
+//        rebuild_cores), so that the host only enqueues it; bytes bound
+//        it (a few MB a rebuild at dp=0.01).
 //   * the geometry cache of both (cache_plan :422-458; written :663-674,
 //     read :743-762, :845-861, :1005-1022) -> FORM_CACHE below.
 //   * _kernel_body_rows, the candidate-row-outer loop (:1081-1468, picked
@@ -264,6 +274,32 @@ struct DriftBufs {
   const float *refx, *refy, *isf;
   float* cells;
   int rows, row0, isf_halo;
+};
+
+// sph_rebuild's grid, inputs, outputs and scratch. Inputs: the old
+// layout's take indices and the kept chunk state (xs, ys plain, or with
+// src_halo the halo'd working cores of a group that kept nothing; drs
+// plain; vxs, vys halo'd), the kept per-slot pair counts (cnt; null: none
+// kept, 0 pairs) and the per-particle static fields (stat: isf, mass, wvx,
+// wvy, wbot, wtop, n each). Outputs: one layout set (halo'd except refx,
+// refy and drP; occ per row group; ovf the set's overflow flag, a bool).
+// Scratch: ints = the per-cell counts (nx*ny), the per-group occupancy
+// (nyp/R), the overflow word and twice the kept pair count, zeroed at
+// every rebuild; acc[0] the overflow of the interval so far (first: reset);
+// bucket (nx*ny*cap ids), cell (n), owner (nyp*K*nx particle per slot),
+// part (5 x n: x wrapped, y, vx, vy, dr).
+struct RebuildBufs {
+  int n, n_fluid, nx, ny, nyp, K, R, cap, src_halo, first;
+  float DL, inv_DL, inv_cx, inv_cy, y0, big_x, zero;
+  const long long *pidx0, *hidx0;
+  const float *xs, *ys, *drs, *vxs, *vys, *cnt, *stat;
+  long long *pidx, *hidx;
+  float *isf, *mass, *wvx, *wvy, *wbot, *wtop, *refx, *refy;
+  float *xH, *yH, *vxH, *vyH, *drP;
+  int* occ;
+  bool* ovf;
+  int *ints, *acc, *bucket, *cell, *owner;
+  float* part;
 };
 
 }  // extern "C"
@@ -1732,6 +1768,155 @@ __global__ void __launch_bounds__(256) drift_windows(SphConst c, DriftBufs d,
   }
 }
 
+// ---- the in-loop rebuild (stepper.PallasCellEngine._do_rebuild with
+//      ops/fused_cell.build_fused_layout and ops/cellgrid.assign_slots),
+//      bit for bit. The float32 arithmetic is torch's on the card, one
+//      operation at a time: periodic_wrap's torch.remainder is fmod plus
+//      the divisor where the signs differ; a tensor over a Python float
+//      is a product with the divisor's reciprocal, taken in double and
+//      rounded to float32 (inv_DL, inv_cx, inv_cy, from the host), so
+//      _cell_coords here takes those products; a sum with or a product
+//      by a Python float takes it rounded to float32 (DL, y0); the
+//      x-halo columns are the plain value
+//      -+ the shift (DL for x, 0 elsewhere, which maps -0 to +0 on the
+//      right), as halo_ify computes them. The slots do not depend on the
+//      order of the atomics: a particle's rank is the number of lower ids
+//      in its cell (the stable sort's), counted over the cell's bucket
+//      of ids, or, for a cell past the bucket's cap ids, over all lower
+//      ids (rare: an overflowing cell). Ranks from K on take the sentinel
+//      slot. No kernel writes what it reads. What bounds it: the bytes of
+//      the set (15 cores and two index arrays) and the launches. ----
+__device__ __forceinline__ float torch_remainder(float a, float b) {
+  float m = fmodf(a, b);
+  if (m != 0.0f && ((b < 0.0f) != (m < 0.0f))) m += b;
+  return m;
+}
+
+// the take back to particle order (clamped indices), the wrap of fluid x,
+// the cell, the per-cell count and bucket
+__global__ void __launch_bounds__(256) rebuild_gather(RebuildBufs b) {
+  const int i = blockIdx.x * blockDim.x + threadIdx.x;
+  if (i >= b.n) return;
+  const long long kn = (long long)b.K * b.nx;
+  const long long np = b.nyp * kn;
+  const long long nh = (long long)(b.nyp + 2) * b.K * (b.nx + 2);
+  const long long p = min(b.pidx0[i], np - 1);
+  const long long h = min(b.hidx0[i], nh - 1);
+  long long px = p;
+  if (b.src_halo) {
+    const long long iy = p / kn, r = p - iy * kn, k = r / b.nx;
+    px = ((iy + 1) * b.K + k) * (b.nx + 2) + (r - k * b.nx) + 1;
+  }
+  float x = b.xs[px];
+  const float y = b.ys[px];
+  if (i < b.n_fluid) x = torch_remainder(x, b.DL);
+  const float xw = x - floorf(x * b.inv_DL) * b.DL;
+  const int cx = min(max((int)floorf(xw * b.inv_cx), 0), b.nx - 1);
+  const int cy = min(max((int)floorf((y - b.y0) * b.inv_cy), 0), b.ny - 1);
+  const int c = cy * b.nx + cx;
+  b.cell[i] = c;
+  b.part[i] = x;
+  b.part[b.n + i] = y;
+  b.part[2 * b.n + i] = b.vxs[h];
+  b.part[3 * b.n + i] = b.vys[h];
+  b.part[4 * b.n + i] = b.drs[p];
+  const int pos = atomicAdd(&b.ints[c], 1);
+  if (pos < b.cap) b.bucket[c * b.cap + pos] = i;
+}
+
+// the rank in the cell, the slot, pidx/hidx, the slot's particle, and per
+// cell (its rank-0 particle) the occupancy bound and the overflow
+__global__ void __launch_bounds__(256) rebuild_slots(RebuildBufs b) {
+  const int i = blockIdx.x * blockDim.x + threadIdx.x;
+  if (i >= b.n) return;
+  const int c = b.cell[i];
+  const int cnt = b.ints[c];
+  int rank = 0;
+  if (cnt <= b.cap) {
+    const int* bk = b.bucket + c * b.cap;
+    for (int j = 0; j < cnt; ++j) rank += bk[j] < i;
+  } else {
+    for (int j = 0; j < i && rank < b.K; ++j) rank += b.cell[j] == c;
+  }
+  const int iy = c / b.nx, ix = c - iy * b.nx;
+  if (rank < b.K) {
+    const int p = (iy * b.K + rank) * b.nx + ix;
+    b.pidx[i] = p;
+    b.hidx[i] = ((long long)(iy + 1) * b.K + rank) * (b.nx + 2) + ix + 1;
+    b.owner[p] = i;
+  } else {
+    b.pidx[i] = (long long)b.nyp * b.K * b.nx;
+    b.hidx[i] = (long long)(b.nyp + 2) * b.K * (b.nx + 2);
+  }
+  if (rank == 0) {
+    int* occ = b.ints + b.nx * b.ny;
+    atomicMax(&occ[iy / b.R], min(cnt, b.K));
+    if (cnt > b.K) atomicOr(&occ[b.nyp / b.R], 1);
+  }
+}
+
+// every element of the set's halo'd cores (and, at the centres, its plain
+// ones): the slot's particle's values or the fill; the occupancy bound,
+// the overflow flags and twice the kept pair count (a slot's count is a
+// multiple of 1/2: as integers the sum is exact in any order)
+__global__ void __launch_bounds__(256) rebuild_cores(RebuildBufs b) {
+  const int W = b.nx + 2;
+  const int e = blockIdx.x * blockDim.x + threadIdx.x;
+  const int ng = b.nyp / b.R;
+  const int* occ_s = b.ints + b.nx * b.ny;
+  unsigned pairs = 0u;
+  if (e < (b.nyp + 2) * b.K * W) {
+    const int ixh = e % W, k = (e / W) % b.K, iyh = e / (W * b.K);
+    const int iy = iyh - 1;
+    int ix = -1, side = 0;   // side: -1 left halo column, +1 right
+    if (iyh >= 1 && iyh <= b.nyp) {
+      if (ixh >= 1 && ixh <= b.nx) ix = ixh - 1;
+      else if (b.nx >= 3 && ixh == 0) { ix = b.nx - 1; side = -1; }
+      else if (b.nx >= 3) { ix = 0; side = 1; }
+    }
+    int q = -1;
+    if (ix >= 0 && iy < b.ny && k < min(b.ints[iy * b.nx + ix], b.K))
+      q = b.owner[(iy * b.K + k) * b.nx + ix];
+    float v[11];
+    for (int f = 0; f < 6; ++f) v[f] = q >= 0 ? b.stat[f * b.n + q] : 0.0f;
+    for (int f = 0; f < 5; ++f)
+      v[6 + f] = q >= 0 ? b.part[f * b.n + q] : (f == 0 ? b.big_x : 0.0f);
+    const float x = v[6], y = v[7], dr = v[10];
+    if (side != 0) {
+      for (int f = 0; f < 10; ++f)
+        v[f] = side < 0 ? v[f] - (f == 6 ? b.DL : b.zero)
+                        : v[f] + (f == 6 ? b.DL : b.zero);
+    }
+    b.isf[e] = v[0];
+    b.mass[e] = v[1];
+    b.wvx[e] = v[2];
+    b.wvy[e] = v[3];
+    b.wbot[e] = v[4];
+    b.wtop[e] = v[5];
+    b.xH[e] = v[6];
+    b.yH[e] = v[7];
+    b.vxH[e] = v[8];
+    b.vyH[e] = v[9];
+    if (ix >= 0 && side == 0) {
+      const int p = (iy * b.K + k) * b.nx + ix;
+      b.refx[p] = x;
+      b.refy[p] = y;
+      b.drP[p] = dr;
+      if (b.cnt != nullptr) pairs = (unsigned)(int)(2.0f * b.cnt[p]);
+    }
+    if (e < ng) b.occ[e] = occ_s[e];
+    if (e == 0) {
+      const int o = occ_s[ng];
+      *b.ovf = o != 0;
+      b.acc[0] = b.first ? o : (b.acc[0] | o);
+    }
+  }
+  pairs = __reduce_add_sync(0xffffffffu, pairs);
+  if ((threadIdx.x & 31) == 0 && pairs != 0u)
+    atomicAdd(reinterpret_cast<unsigned*>(b.ints + b.nx * b.ny + ng + 1),
+              pairs);
+}
+
 // ---- wall-shear partials (sph_physics_mex.c:1713-1742;
 //      fused_cell.py:1928-1979). Only an anchor whose window holds a wall
 //      slot (wbot or wtop set) adds anything: every other term is f_pair
@@ -2131,6 +2316,22 @@ int sph_shear(const SphConst* cp, const ShearBufs* bp, void* stream) {
   if (b.nrows == 0) return static_cast<int>(cudaGetLastError());
   const int n = b.nrows * c.K * c.nx;
   shear<<<blocks_for(n * kShearG, 128), 128, 0, st>>>(c, b);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// the in-loop rebuild into one layout set: the scratch counts zeroed, then
+// rebuild_gather, rebuild_slots and rebuild_cores. Nothing synchronizes
+// and nothing is allocated.
+int sph_rebuild(const RebuildBufs* bp, void* stream) {
+  const RebuildBufs b = *bp;
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const size_t n_ints = b.nx * b.ny + b.nyp / b.R + 2;
+  cudaError_t e = cudaMemsetAsync(b.ints, 0, sizeof(int) * n_ints, st);
+  if (e != cudaSuccess) return static_cast<int>(e);
+  rebuild_gather<<<blocks_for(b.n, 256), 256, 0, st>>>(b);
+  rebuild_slots<<<blocks_for(b.n, 256), 256, 0, st>>>(b);
+  rebuild_cores<<<blocks_for((b.nyp + 2) * b.K * (b.nx + 2), 256), 256, 0,
+                  st>>>(b);
   return static_cast<int>(cudaGetLastError());
 }
 

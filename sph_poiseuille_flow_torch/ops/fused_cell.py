@@ -31,10 +31,13 @@ Each plain sweep is a function of its own (``_sweep0_plain`` ..
 ``ops/probes.py`` can run a sweep range.
 
 The rebuild glue (slot assignment, packed scatter, takes) is plain
-torch, as it is XLA in the JAX package. The engine's chunk path runs
-through ``ChunkRunner``: persistent buffers, and on the card one call a
-sub-chunk that also takes the drift guard's bounds (plain torch here:
-``pair_drift_bounds``, the CPU path and the kernels' reference).
+torch here (``build_fused_layout``), as it is XLA in the JAX package. The
+engine's chunk path runs through ``ChunkRunner``: persistent buffers, and
+on the card one call a sub-chunk that also takes the drift guard's bounds
+(plain torch here: ``pair_drift_bounds``, the CPU path and the kernels'
+reference); its rebuilds between groups run through ``RebuildRunner`` on
+persistent layout sets, on the card one enqueued call a rebuild
+(``sph_rebuild``), bit-equal to the engine's ``_do_rebuild``.
 """
 
 from __future__ import annotations
@@ -309,7 +312,7 @@ def build_fused_layout(spec: GridSpec, x, y, mass, wall_vx, wall_vy,
     from .cellgrid import assign_slots
 
     R, L, n_groups, nyp = plan(spec)
-    n, nx, K = spec.n_total, spec.nx, spec.K
+    nx, K = spec.nx, spec.K
     dev = x.device
     slot, overflow = assign_slots(spec, x, y)
     cell = slot // K
@@ -333,31 +336,40 @@ def build_fused_layout(spec: GridSpec, x, y, mass, wall_vx, wall_vy,
                      keepdim=True)
     occ = torch.clamp(occ, max=K).to(torch.int32)
 
-    fdtype = x.dtype
-    is_fluid = (torch.arange(n, device=dev) < spec.n_fluid).to(fdtype)
-    is_wall = 1.0 - is_fluid
-    fields = [is_fluid, is_wall, mass, wall_vx, wall_vy,
-              is_wall * (wall_y <= 0.0).to(fdtype),
-              is_wall * (wall_y >= spec.DH).to(fdtype),
-              x, y] + list(state_fields)
-    fills = [0.0] * 7 + [_BIG_X, 0.0] + [0.0] * len(state_fields)
+    fields = (layout_statics(spec, mass, wall_vx, wall_vy, wall_y, x)
+              + [x, y] + list(state_fields))
+    fills = [0.0] * 6 + [_BIG_X, 0.0] + [0.0] * len(state_fields)
     cores = _packed_cores(spec, pidx, fields, fills)
-    wbot_c, wtop_c = halo_ify(spec, cores[5]), halo_ify(spec, cores[6])
+    wbot_c, wtop_c = halo_ify(spec, cores[4]), halo_ify(spec, cores[5])
     shear_rows, shear_tbt = (shear_row_list(wbot_c, wtop_c) if shear is None
                              else shear)
     lay = FusedLayout(
         pidx=pidx, hidx=hidx,
         isf_c=halo_ify(spec, cores[0]),
-        mass_c=halo_ify(spec, cores[2]),
-        wvx_c=halo_ify(spec, cores[3]),
-        wvy_c=halo_ify(spec, cores[4]),
+        mass_c=halo_ify(spec, cores[1]),
+        wvx_c=halo_ify(spec, cores[2]),
+        wvy_c=halo_ify(spec, cores[3]),
         wbot_c=wbot_c, wtop_c=wtop_c,
-        refx_p=cores[7], refy_p=cores[8],
+        refx_p=cores[6], refy_p=cores[7],
         occ=occ, overflow=overflow, shear_rows=shear_rows,
         shear_tbt=shear_tbt)
     if state_fields:
-        return lay, cores[9:]
+        return lay, cores[8:]
     return lay
+
+
+def layout_statics(spec: GridSpec, mass, wall_vx, wall_vy, wall_y, like):
+    """The per-particle fields of a layout's static cores, in
+    ``build_fused_layout``'s float type (``like``'s): the fluid mask, the
+    mass, the prescribed wall velocity and the bottom/top wall masks
+    (walls by their rest height ``wall_y``)."""
+    fdtype = like.dtype
+    is_fluid = (torch.arange(spec.n_total, device=like.device)
+                < spec.n_fluid).to(fdtype)
+    is_wall = 1.0 - is_fluid
+    return [is_fluid, mass, wall_vx, wall_vy,
+            is_wall * (wall_y <= 0.0).to(fdtype),
+            is_wall * (wall_y >= spec.DH).to(fdtype)]
 
 
 def shear_row_list(wbot_c, wtop_c):
@@ -1056,12 +1068,17 @@ class ChunkRunner:
         self._dt = {}
 
     def group(self, spec: GridSpec, lay: FusedLayout, carry, interval_len,
-              scalars, drift: DriftRef = None, cache_slots: int = 0):
+              scalars, drift: DriftRef = None, cache_slots: int = 0,
+              lay_key=None):
         """A sub-chunk group's runner over ``lay`` from ``carry`` (the
         chunk state: xH, yH, vxH, vyH, drP and the aux cores) on the
         buffers of its cores' key. ``scalars``: (rho0, p0, c_f,
         inv_sigma0, transport_coeff, g, mu, wall_visc_factor);
-        ``drift``: the bounds' references, None for none (bounds 0)."""
+        ``drift``: the bounds' references, None for none (bounds 0);
+        ``lay_key``: names ``lay`` and ``drift`` where they are a
+        persistent layout set's (``BufferedRebuild``), whose tensors
+        never change, so the buffers bind them once (None: bind them
+        anew)."""
         xH, drP = carry["xH"], carry["drP"]
         _check_device(xH)
         form, k_cut = chunk_form(spec, xH.dtype)
@@ -1083,7 +1100,7 @@ class ChunkRunner:
                 dt = self._dt[key] = tuple(
                     float(v) for v in chunk_dt_limits(*key, host))
         return BufferedChunkRun(bufs, spec, lay, carry, interval_len,
-                                scalars, drift, cache_slots, dt)
+                                scalars, drift, cache_slots, dt, lay_key)
 
 
 class BufferedChunkRun:
@@ -1102,18 +1119,19 @@ class BufferedChunkRun:
     The trajectory is ``stepper.ChunkRun``'s, bit for bit."""
 
     def __init__(self, bufs, spec, lay, carry, interval_len, scalars,
-                 drift, cache_slots, dt_limits):
+                 drift, cache_slots, dt_limits, lay_key=None):
         self.cur, self.new = carry, None
         self.bufs, self.spec, self.lay = bufs, spec, lay
         self.interval, self.scalars, self.drift = interval_len, scalars, drift
         self._last = None
         self._card = bufs.cores[0]["x"].is_cuda
         if self._card:
-            bufs.bind(lay)
+            bufs.bind(lay, lay_key)
             self._c = bufs.const(spec, scalars[:5], cache_slots)
             self._clock = (interval_len, *dt_limits)
             self._dyn = tuple(float(v) for v in scalars[5:8])
-            self._drift = None if drift is None else bufs.drift(*drift)
+            self._drift = (None if drift is None
+                           else bufs.drift(*drift, key=lay_key))
 
     def __call__(self, n_sub: int, t_i, tc_i):
         fused_cell_cuda.CHUNK_BUFFERS["runs"] += 1
@@ -1163,6 +1181,112 @@ class BufferedChunkRun:
         if c["cnt"].dim() == 3:    # the buffers' count per slot
             c = dict(c, cnt=_cnt_rows(self.spec, c["cnt"]))
         return c
+
+
+class RebuildRunner:
+    """The interval loop's rebuild on persistent layout sets, which the
+    fused engine's groups take beside the chunk path's buffers: one
+    ``fused_cell_cuda.RebuildBuffers`` per key (halo'd and plain core
+    shapes, particles, device, dtype), built on first use and reused by
+    every later group, interval and lane."""
+
+    def __init__(self):
+        self._bufs = {}
+
+    def interval(self, spec: GridSpec, carry, statics, shear, plain):
+        """An interval's rebuilds on the sets of ``carry``'s key (its xH
+        and drP). ``statics``: the (6, n) ``layout_statics``; ``shear``:
+        the layouts' (shear_rows, shear_tbt); ``plain(lay, st)``: the
+        plain twin (the engine's ``_do_rebuild``)."""
+        xH, drP = carry["xH"], carry["drP"]
+        _check_device(xH)
+        key = (tuple(xH.shape), tuple(drP.shape), spec.n_total, xH.device,
+               xH.dtype)
+        bufs = self._bufs.get(key)
+        if bufs is None:
+            bufs = self._bufs[key] = fused_cell_cuda.RebuildBuffers(
+                spec, plan(spec)[0], xH.shape, drP.shape, xH.dtype,
+                xH.device)
+        return BufferedRebuild(bufs, statics, shear, plain)
+
+
+_SET_LAYOUT = (("pidx", "pidx"), ("hidx", "hidx"), ("isf_c", "isf"),
+               ("mass_c", "mass"), ("wvx_c", "wvx"), ("wvy_c", "wvy"),
+               ("wbot_c", "wbot"), ("wtop_c", "wtop"), ("refx_p", "refx"),
+               ("refy_p", "refy"), ("occ", "occ"), ("overflow", "ovf"))
+_SET_CARRY = ("xH", "yH", "vxH", "vyH", "drP")
+
+
+class BufferedRebuild:
+    """An interval's rebuilds (``RebuildRunner.interval``): a call
+    rebuilds the layout from the old one and the group's kept state into
+    the set that the group did not read, and returns the set's layout, its
+    carry (the next group's xH, yH, vxH, vyH, drP) and its key for
+    ``ChunkRunner.group``. The two sets take turns, so the last group's
+    layout, which the interval's end reads, and the new one stay intact.
+    ``totals`` gives the last kept pair count and the interval's overflow,
+    ``detach`` a copy of a set's layout: nothing handed to the caller
+    aliases a set. On the card a call is one ``sph_rebuild``, enqueued;
+    on the CPU the plain twin fills the set. The layouts, carries, counts
+    and flags are the plain twin's bit for bit."""
+
+    def __init__(self, bufs, statics, shear, plain):
+        self.bufs, self.statics, self.plain = bufs, statics, plain
+        self.first = True
+        rows, tbt = shear
+        self.layouts = [FusedLayout(**{f: c[k] for f, k in _SET_LAYOUT},
+                                    shear_rows=rows, shear_tbt=tbt)
+                        for c in bufs.cores]
+        self.carries = [{k: c[k] for k in _SET_CARRY} for c in bufs.cores]
+
+    def __call__(self, lay: FusedLayout, st, kept: bool):
+        """Rebuild from ``lay`` and ``st``: the kept chunk state (a
+        buffer set's, ``cnt`` per slot) where ``kept``, else the group's
+        carry."""
+        b = self.bufs
+        i = b.next_set()
+        fused_cell_cuda.REBUILD_BUFFERS["runs"] += 1
+        if b.card:
+            pos = ("xP", "yP") if kept else ("xH", "yH")
+            b.launch(i, lay.pidx, lay.hidx, st[pos[0]], st[pos[1]], st["drP"],
+                     st["vxH"], st["vyH"], st["cnt"] if kept else None,
+                     self.statics, not kept, self.first)
+        else:
+            self._run_plain(i, lay, st, kept)
+        self.first = False
+        return self.layouts[i], self.carries[i], (b, i)
+
+    def _run_plain(self, i, lay, st, kept):
+        if not kept:
+            st = dict(st, xP=st["xH"][1:-1, :, 1:-1],
+                      yP=st["yH"][1:-1, :, 1:-1])
+        nl, carry = self.plain(lay, st)
+        out = self.bufs.cores[i]
+        for f, k in _SET_LAYOUT:
+            out[k].copy_(getattr(nl, f))
+        for k in _SET_CARRY:
+            out[k].copy_(carry[k])
+        b = self.bufs
+        b.pairs2.copy_(2 * torch.sum(st["cnt"]) if kept else 0)
+        b.overflow_any.copy_(nl.overflow if self.first else
+                             torch.logical_or(b.overflow_any != 0,
+                                              nl.overflow))
+
+    def totals(self, overflow):
+        """(the last rebuild's kept pair count, ``overflow`` or any
+        rebuild's overflow): new tensors, after at least one call."""
+        b = self.bufs
+        return (torch.round(b.pairs2.double() * 0.5).to(torch.int32),
+                torch.logical_or(overflow, b.overflow_any != 0))
+
+    def detach(self, lay: FusedLayout) -> FusedLayout:
+        """``lay``, or where it is a set's layout a copy of it (one copy
+        of the set's allocation)."""
+        for i, own in enumerate(self.layouts):
+            if lay is own:
+                c = self.bufs.views(self.bufs.mem[i].clone())
+                return lay._replace(**{f: c[k] for f, k in _SET_LAYOUT})
+        return lay
 
 
 # ---------------------------------------------------------------------------

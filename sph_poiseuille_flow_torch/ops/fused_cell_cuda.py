@@ -3,7 +3,8 @@
 kernels: the fused step and the multi-step chunk, each in its recompute,
 geometry-cache and row-outer forms, and the wall-shear monitor; and the
 probes' kernels: the step cut to a sweep range, the no-op over the step's
-buffers and the one-hot lane tiling).
+buffers and the one-hot lane tiling; and the interval loop's rebuild
+between sub-chunk groups, which has no Pallas counterpart).
 
 The source is compiled with ``nvcc`` for ``sm_90a`` into a shared library
 with a plain C interface at first use (into ``build/`` beside the package,
@@ -17,6 +18,8 @@ entry per kernel and form). A form it does not know raises; no form gives
 way to another. ``ChunkBuffers`` is the chunk's persistent form: its
 ``launch`` (``sph_chunk_run``) is the one wrapper that synchronises, since
 it returns the sub-chunk's control record to the host.
+``RebuildBuffers`` holds the rebuild's persistent layout sets: its
+``launch`` (``sph_rebuild``) enqueues the rebuild and returns.
 """
 
 from __future__ import annotations
@@ -45,12 +48,13 @@ NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 # call): "fused_step"/"fused_chunk" are the recompute form ("none"),
 # "*_cache" the geometry cache ("full", "ring", "partial"), "*_rows" the
 # candidate-row-outer loop ("rows"); "fused_step_sweeps*" a sweep range of
-# the step (``StepBuffers.sweeps``)
+# the step (``StepBuffers.sweeps``); "fused_rebuild" the interval loop's
+# rebuild (``RebuildBuffers.launch``)
 LAUNCHES = {"fused_step": 0, "fused_step_cache": 0, "fused_step_rows": 0,
             "fused_chunk": 0, "fused_chunk_cache": 0, "fused_chunk_rows": 0,
             "fused_wall_shear": 0, "fused_step_sweeps": 0,
             "fused_step_sweeps_cache": 0, "fused_step_sweeps_rows": 0,
-            "fused_noop": 0, "expand_onehot": 0}
+            "fused_noop": 0, "expand_onehot": 0, "fused_rebuild": 0}
 
 # form name -> (kernel form of csrc/fused_cell.cu, LAUNCHES suffix)
 _FORMS = {"none": (0, ""), "full": (1, "_cache"), "ring": (1, "_cache"),
@@ -83,6 +87,11 @@ SMEM_MAX = 232_448
 # wrapper calls (a run on the card also counts one "fused_chunk*" launch)
 CHUNK_BUFFERS = {"sets_built": 0, "runs": 0}
 
+# the rebuild's persistent layout sets (``RebuildBuffers``): key sets built
+# and rebuilds through them, one a sub-chunk group (a rebuild on the card
+# also counts one "fused_rebuild" launch)
+REBUILD_BUFFERS = {"sets_built": 0, "runs": 0}
+
 _lib = None
 
 
@@ -91,6 +100,8 @@ def reset_launch_counts() -> None:
         LAUNCHES[k] = 0
     for k in CHUNK_BUFFERS:
         CHUNK_BUFFERS[k] = 0
+    for k in REBUILD_BUFFERS:
+        REBUILD_BUFFERS[k] = 0
 
 
 class _Const(ctypes.Structure):
@@ -191,9 +202,10 @@ def _load():
         lib.sph_shear.argtypes = [vp, vp, vp]
         lib.sph_noop.argtypes = [vp, vp, vp]
         lib.sph_expand.argtypes = [vp, vp, ip, ip, ip, vp]
+        lib.sph_rebuild.argtypes = [vp, vp]
         for fn in (lib.sph_step, lib.sph_step_sweeps, lib.sph_chunk,
                    lib.sph_chunk_run, lib.sph_shear, lib.sph_noop,
-                   lib.sph_expand):
+                   lib.sph_expand, lib.sph_rebuild):
             fn.restype = ip
         _lib = lib
     return _lib
@@ -293,7 +305,17 @@ def _const(spec, R: int, rho0, p0, c_f, inv_sigma0, transport_coeff,
 
 def _check(t: torch.Tensor, shape, name: str, device,
            dtype=torch.float32):
-    if not t.is_cuda or t.device != device:
+    if not t.is_cuda:
+        raise ValueError(f"{name}: expected a tensor on {device}, got "
+                         f"{t.device}")
+    _check_on(t, shape, name, device, dtype)
+
+
+def _check_on(t: torch.Tensor, shape, name: str, device,
+              dtype=torch.float32):
+    """``_check`` on any device: ``t`` on ``device``, of ``dtype`` and
+    ``shape``, contiguous."""
+    if t.device != device:
         raise ValueError(f"{name}: expected a tensor on {device}, got "
                          f"{t.device}")
     if t.dtype != dtype:
@@ -634,6 +656,7 @@ class ChunkBuffers:
                        .view(shp) for n, shp in shapes} for i in (0, 1)]
         self.kept = 0
         self._consts = {}
+        self._bound, self._drifts = None, {}
         CHUNK_BUFFERS["sets_built"] += 1
         if self._mem.is_cuda:
             self._card_setup(spec, offs)
@@ -688,10 +711,15 @@ class ChunkBuffers:
             + [4 * math.prod(self.plain)]
         self._span4 = 4 * (offs["vy"] - offs["x"]) + self._nbytes[3]
 
-    def bind(self, lay) -> None:
+    def bind(self, lay, key=None) -> None:
         """Point both sets' step buffers at a layout's static cores and
         occupancy bound (checked here; the caller keeps ``lay`` alive
-        while runs read it)."""
+        while runs read it). ``key``: names a layout whose tensors never
+        change (a persistent layout set), bound once while it stays
+        bound."""
+        if key is not None and key == self._bound:
+            return
+        self._bound = key
         dev = self._mem.device
         for t, n in ((lay.isf_c, "isf_c"), (lay.mass_c, "mass_c"),
                      (lay.wvx_c, "wvx_c"), (lay.wvy_c, "wvy_c")):
@@ -718,10 +746,19 @@ class ChunkBuffers:
                 cache_slots=cache_slots)
         return c
 
-    def drift(self, refx, refy, isf, isf_halo: bool, row0: int):
+    def drift(self, refx, refy, isf, isf_halo: bool, row0: int, key=None):
         """The drift bounds' buffer struct over ``refx``'s rows, which are
         rows row0 .. of the chunk's plain cores (``fused_cell.DriftRef``;
-        the caller keeps the tensors alive while runs read them)."""
+        the caller keeps the tensors alive while runs read them).
+        ``key``: as ``bind``'s, the struct kept for it."""
+        if key is not None and key in self._drifts:
+            return self._drifts[key]
+        d = self._drift_struct(refx, refy, isf, isf_halo, row0)
+        if key is not None:
+            self._drifts[key] = d
+        return d
+
+    def _drift_struct(self, refx, refy, isf, isf_halo: bool, row0: int):
         dev = self._mem.device
         rows, K, nx = refx.shape[0], self.plain[1], self.plain[2]
         _check(refx, (rows, K, nx), "refx", dev)
@@ -781,6 +818,166 @@ class ChunkBuffers:
         o = self._out
         return (o[REC_BX], o[REC_BY], o[REC_T], o[REC_TC],
                 int(self._out_i[REC_DONE]))
+
+
+# sph_rebuild's parameter block (csrc/fused_cell.cu ``RebuildBufs``): the
+# grid, the constants, what it reads, the set it writes, its scratch
+_REBUILD_INTS = ("n", "n_fluid", "nx", "ny", "nyp", "K", "R", "cap",
+                 "src_halo", "first")
+_REBUILD_FLOATS = ("DL", "inv_DL", "inv_cx", "inv_cy", "y0", "big_x",
+                   "zero")
+_REBUILD_IN = ("pidx0", "hidx0", "xs", "ys", "drs", "vxs", "vys", "cnt",
+               "stat")
+# a layout set's arrays in the order of its one allocation
+_REBUILD_SET = ("pidx", "hidx", "isf", "mass", "wvx", "wvy", "wbot", "wtop",
+                "refx", "refy", "xH", "yH", "vxH", "vyH", "drP", "occ", "ovf")
+_REBUILD_SCRATCH = ("ints", "acc", "bucket", "cell", "owner", "part")
+
+# ids a cell's bucket holds, per slot rank: a cell with more particles (an
+# overflowing one) counts its ranks over every particle instead
+REBUILD_CAP_PER_K = 2
+
+# the x fill of empty slots (``fused_cell._BIG_X``)
+_BIG_X = 1.0e9
+
+
+class _RebuildBufs(ctypes.Structure):
+    _fields_ = ([(n, ctypes.c_int) for n in _REBUILD_INTS]
+                + [(n, ctypes.c_float) for n in _REBUILD_FLOATS]
+                + [(n, ctypes.c_void_p)
+                   for n in _REBUILD_IN + _REBUILD_SET + _REBUILD_SCRATCH])
+
+
+class RebuildBuffers:
+    """The interval loop's rebuild for one key (halo'd and plain core
+    shapes, particles, device, dtype): two layout sets, one contiguous
+    allocation each, used in turn (``next_set``). A set holds a layout's
+    take indices ``pidx``/``hidx`` (int64), its static halo'd cores
+    ``isf``, ``mass``, ``wvx``, ``wvy``, ``wbot``, ``wtop``, the plain
+    position references ``refx``/``refy``, the occupancy bound ``occ``
+    (n_groups, 1) int32 and the overflow flag ``ovf`` (a 0-dim bool), and
+    the next group's carry ``xH``, ``yH``, ``vxH``, ``vyH`` (halo'd) and
+    ``drP`` (plain). ``pairs2`` and ``overflow_any`` are 0-dim int32
+    words: twice the last rebuild's kept pair count (the per-slot counts
+    are multiples of 1/2, so an integer sum of their doubles is exact; the
+    float sum the count stands for is exact below 2^23 pairs) and the
+    overflow of every rebuild since the last ``first`` one.
+
+    On the card it also holds the scratch (the per-cell counts and id
+    buckets, the particle per slot, the staged particle values) and one
+    parameter block per set, and ``launch`` enqueues one ``sph_rebuild``.
+    On the CPU the caller fills the sets (``fused_cell.BufferedRebuild``)."""
+
+    def __init__(self, spec, R: int, halo, plain, dtype, dev):
+        self.R, self.halo, self.plain = R, tuple(halo), tuple(plain)
+        self.n, self.dtype, self.dev = spec.n_total, dtype, torch.device(dev)
+        n, ng = self.n, self.plain[0] // R
+        shapes = ([("pidx", (n,), torch.int64), ("hidx", (n,), torch.int64)]
+                  + [(k, self.halo, dtype) for k in _REBUILD_SET[2:8]]
+                  + [(k, self.plain, dtype) for k in ("refx", "refy")]
+                  + [(k, self.halo, dtype) for k in ("xH", "yH", "vxH",
+                                                     "vyH")]
+                  + [("drP", self.plain, dtype), ("occ", (ng, 1), torch.int32),
+                     ("ovf", (), torch.bool)])
+        self._fields, o = [], 0
+        for k, shp, dt in shapes:
+            nb = math.prod(shp) * torch.empty((), dtype=dt).element_size()
+            self._fields.append((k, shp, dt, o, nb))
+            o += -(-nb // (4 * _SET_ALIGN)) * (4 * _SET_ALIGN)
+        self.mem = torch.empty((2, o), dtype=torch.uint8, device=self.dev)
+        self.cores = [self.views(self.mem[i]) for i in (0, 1)]
+        self.last = 1
+        self.card = self.mem.is_cuda
+        REBUILD_BUFFERS["sets_built"] += 1
+        if self.card:
+            self._card_setup(spec, ng)
+        else:
+            self._words = torch.zeros(2, dtype=torch.int32, device=self.dev)
+            self.pairs2, self.overflow_any = self._words[0], self._words[1]
+
+    def views(self, row) -> dict:
+        """A set's arrays as views into ``row``, one set's allocation (a
+        row of ``mem`` or a copy of one)."""
+        return {k: row[o:o + nb].view(dt).view(shp)
+                for k, shp, dt, o, nb in self._fields}
+
+    def next_set(self) -> int:
+        """The set the next rebuild writes: the one the last did not."""
+        self.last = 1 - self.last
+        return self.last
+
+    def _card_setup(self, spec, ng: int):
+        if self.dtype != torch.float32:
+            raise ValueError(f"sph_rebuild runs in float32 only, not "
+                             f"{self.dtype}")
+        nyp, K, nx = self.plain
+        n, n_cells = self.n, spec.nx * spec.ny
+        cap = REBUILD_CAP_PER_K * K
+        i32 = dict(dtype=torch.int32, device=self.dev)
+        self._scratch = dict(
+            ints=torch.zeros(n_cells + ng + 2, **i32),
+            acc=torch.zeros(1, **i32),
+            bucket=torch.empty(n_cells * cap, **i32),
+            cell=torch.empty(n, **i32), owner=torch.empty(nyp * K * nx, **i32),
+            part=torch.empty(5 * n, dtype=torch.float32, device=self.dev))
+        self.pairs2 = self._scratch["ints"][n_cells + ng + 1]
+        self.overflow_any = self._scratch["acc"][0]
+        # torch on the card takes a float32 tensor over a Python float as
+        # the product with the reciprocal, taken in double and rounded to
+        # float32 (chip_smoke.py phase 10 holds the rebuild to it)
+        f32 = np.float32
+        consts = dict(
+            n=n, n_fluid=spec.n_fluid, nx=nx, ny=spec.ny, nyp=nyp, K=K,
+            R=self.R, cap=cap, DL=float(f32(spec.DL)),
+            inv_DL=float(f32(1.0 / spec.DL)),
+            inv_cx=float(f32(1.0 / spec.cell_x)),
+            inv_cy=float(f32(1.0 / spec.cell_y)), y0=float(f32(spec.y0)),
+            big_x=float(f32(_BIG_X)), zero=0.0)
+        scratch = {k: t.data_ptr() for k, t in self._scratch.items()}
+        self._structs = [
+            _RebuildBufs(**consts, **scratch,
+                         **{k: t.data_ptr() for k, t in c.items()})
+            for c in self.cores]
+
+    def launch(self, i: int, pidx0, hidx0, xs, ys, drs, vxs, vys, cnt, stat,
+               src_halo: bool, first: bool) -> None:
+        """Enqueue the rebuild of set ``i`` (``sph_rebuild``) from the old
+        layout's ``pidx0``/``hidx0`` and the kept state: ``xs``/``ys``
+        plain (halo'd with ``src_halo``), ``drs`` plain, ``vxs``/``vys``
+        halo'd, ``cnt`` the plain per-slot pair counts (None: nothing kept,
+        0 pairs), ``stat`` (6, n) the per-particle static fields
+        (``fused_cell.layout_statics``); ``first`` resets
+        ``overflow_any``. Checks every input, raises off the card; no
+        sync."""
+        dev, n = self.dev, self.n
+        pos = self.halo if src_halo else self.plain
+        ins = ((pidx0, (n,), "pidx0", torch.int64),
+               (hidx0, (n,), "hidx0", torch.int64),
+               (xs, pos, "xs", self.dtype), (ys, pos, "ys", self.dtype),
+               (drs, self.plain, "drs", self.dtype),
+               (vxs, self.halo, "vxs", self.dtype),
+               (vys, self.halo, "vys", self.dtype),
+               (stat, (6, n), "stat", self.dtype))
+        if cnt is not None:
+            ins += ((cnt, self.plain, "cnt", self.dtype),)
+        for t, shp, name, dt in ins:
+            if not (t.device == dev and t.dtype == dt and t.shape == shp
+                    and t.is_contiguous()):
+                _check_on(t, shp, name, dev, dt)
+        if not self.card:
+            raise ValueError("sph_rebuild runs on a CUDA card: on the CPU "
+                             "the plain twin fills the layout sets")
+        b = self._structs[i]
+        (b.pidx0, b.hidx0, b.xs, b.ys, b.drs, b.vxs, b.vys, b.stat) = (
+            t.data_ptr() for t in (pidx0, hidx0, xs, ys, drs, vxs, vys,
+                                   stat))
+        b.cnt = None if cnt is None else cnt.data_ptr()
+        b.src_halo, b.first = int(src_halo), int(first)
+        lib = _load()
+        with torch.cuda.device(dev):
+            _raise_on(lib.sph_rebuild(ctypes.addressof(b), _stream(dev)),
+                      "sph_rebuild")
+        LAUNCHES["fused_rebuild"] += 1
 
 
 @functools.lru_cache(maxsize=8)

@@ -94,6 +94,10 @@ class State(NamedTuple):
 STEP_LOG_CAP = 1024  # step-log rows kept per interval
 STEP_LOG_COLS = 7    # step, t, dt, n_pairs, v_max, tau_bottom, tau_top
 
+# the range that marks each rebuild of the chunk path on its layout sets
+# in a capture (``--profile``; a no-op when no profiler runs)
+REBUILD_SPAN = "sph_rebuild"
+
 
 class IntervalResult(NamedTuple):
     """One interval's outcome. Device values (tau, v_max, n_pairs,
@@ -692,11 +696,15 @@ class PallasCellEngine:
         self._wall_y = torch.as_tensor(scene.y, dtype=dtype,
                                        device=self.device)
         self._shear = None
-        # the chunk path's persistent buffers; False runs every sub-chunk
-        # through the stateless fused_chunk_call instead (ChunkRun: the
-        # reference the tests and chip_smoke.py hold the buffers to)
+        # the chunk path's persistent buffers, and the rebuild's layout
+        # sets beside them; False runs every sub-chunk through the
+        # stateless fused_chunk_call (ChunkRun) and every rebuild through
+        # _do_rebuild instead: the reference the tests and chip_smoke.py
+        # hold the buffers to
         self.chunk_buffers = True
         self._chunks = pc.ChunkRunner()
+        self._rebuilds = pc.RebuildRunner()
+        self._statics = None
 
     def _rebuild(self, x, y, state_fields=()):
         out = pc.build_fused_layout(
@@ -775,6 +783,15 @@ class PallasCellEngine:
             xH=pc.halo_ify(spec, nl.refx_p, fill=pc._BIG_X, xshift=spec.DL),
             yH=pc.halo_ify(spec, nl.refy_p), vxH=pc.halo_ify(spec, vxP),
             vyH=pc.halo_ify(spec, vyP), drP=drP)
+
+    def _layout_statics(self):
+        """The (6, n) per-particle fields of the layouts' static cores
+        (``fused_cell.layout_statics``), built once."""
+        if self._statics is None:
+            self._statics = torch.stack(pc.layout_statics(
+                self.spec, self._mass, self._wall_vx, self._wall_vy,
+                self._wall_y, self._mass))
+        return self._statics
 
     def _abs_guard(self, lay, x, y):
         """The per-step path's conservative ABSOLUTE-displacement guard
@@ -883,13 +900,14 @@ class PallasCellEngine:
                                or getattr(self.cfg, "sub_steps", 16)))
 
     def _sub_chunk_run(self, spec, lay, carry, interval, scalars, drift,
-                       cache_slots: int = 0):
+                       cache_slots: int = 0, lay_key=None):
         """A group's chunk-kernel runner: on the persistent buffers
-        (``fused_cell.BufferedChunkRun``), or with ``chunk_buffers`` off
-        through the stateless ``fused_chunk_call`` (``ChunkRun``)."""
+        (``fused_cell.BufferedChunkRun``; ``lay_key``: see
+        ``ChunkRunner.group``), or with ``chunk_buffers`` off through the
+        stateless ``fused_chunk_call`` (``ChunkRun``)."""
         if self.chunk_buffers:
             return self._chunks.group(spec, lay, carry, interval, scalars,
-                                      drift, cache_slots)
+                                      drift, cache_slots, lay_key)
         return ChunkRun(spec, lay, carry, interval, scalars, cache_slots)
 
     def _run_group(self, run, bounds, interval, t_i, tc_i, sub_len, rb,
@@ -995,17 +1013,25 @@ class PallasCellEngine:
         npairs = torch.as_tensor(geom, device=self.device).to(torch.int32)
         n_steps, n_roll, n_syncs, n_kept = 0, 0, 0, 0
         overflow = lay.overflow
+        # with the chunk buffers the rebuilds write persistent layout sets
+        # (fused_cell.BufferedRebuild), which also keep the pair count and
+        # the overflow; else _do_rebuild and torch ops take them
+        sets = (self._rebuilds.interval(spec, cores, self._layout_statics(),
+                                        self._shear, self._do_rebuild)
+                if self.chunk_buffers else None)
+        lay_key = None
 
         while t_local < interval and (max_steps is None
                                       or n_steps < int(max_steps)):
-            st = dict(cores, xP=cores["xH"][1:-1, :, 1:-1],
-                      yP=cores["yH"][1:-1, :, 1:-1],
-                      cnt=torch.zeros((n_groups, L), dtype=self.dtype,
-                                      device=self.device))
+            st = cores if sets is not None else dict(
+                cores, xP=cores["xH"][1:-1, :, 1:-1],
+                yP=cores["yH"][1:-1, :, 1:-1],
+                cnt=torch.zeros((n_groups, L), dtype=self.dtype,
+                                device=self.device))
             drift = (pc.DriftRef(lay.refx_p, lay.refy_p, lay.isf_c)
                      if spec.skin > 0.0 else None)
             run = self._sub_chunk_run(spec, lay, st, interval, scalars,
-                                      drift)
+                                      drift, lay_key=lay_key)
 
             def bounds(new, lay=lay):
                 return pc.pair_drift_bounds(spec, lay, new["xP"], new["yP"])
@@ -1016,18 +1042,25 @@ class PallasCellEngine:
                  t_local, t_comp, sub_len, rb, sub_max)
             n_syncs += syncs
             n_kept += kept
-            st = run.state()
-
-            new_lay, rebuilt = self._do_rebuild(lay, st)
+            if sets is None:
+                st = run.state()
+                new_lay, rebuilt = self._do_rebuild(lay, st)
+                npairs = torch.round(torch.sum(st["cnt"])).to(torch.int32)
+                overflow = torch.logical_or(overflow, new_lay.overflow)
+            else:
+                carry, st = st, run.cur
+                with torch.profiler.record_function(REBUILD_SPAN):
+                    new_lay, rebuilt, lay_key = sets(lay, st,
+                                                     st is not carry)
             cores = dict(rebuilt, **{k: st[k] for k in (
                 "rhoP", "pP", "fxP", "fyP", "fpxP", "fpyP", "volH", "b11H",
                 "b12H", "b21H", "b22H")})
-            npairs = torch.round(torch.sum(st["cnt"])).to(torch.int32)
             pidx_e, hidx_e = lay.pidx, lay.hidx
             lay = new_lay
             n_steps += done_i
-            overflow = torch.logical_or(overflow, new_lay.overflow)
             n_roll += nrb
+        if sets is not None and not sets.first:
+            npairs, overflow = sets.totals(overflow)
 
         def tk(core, idx):
             flat = core.reshape(-1)
@@ -1050,6 +1083,8 @@ class PallasCellEngine:
         nf = spec.n_fluid
         v_max = torch.sqrt(torch.max(state.vx[:nf] ** 2
                                      + state.vy[:nf] ** 2))
+        if sets is not None:
+            lay = sets.detach(lay)
         return IntervalResult(
             state=state, cands=lay, geom=npairs, tau_bottom=tau_b,
             tau_top=tau_t, n_steps=n_steps, overflow=overflow,

@@ -15,6 +15,13 @@ the engine's ``IntervalResult`` bit for bit to the stateless engine's:
   (``CHUNK_BUFFERS``: one set built, one run per sub-chunk);
 * ``slab``: a one-slab ``ShardedPallasEngine`` with ghost rows runs its
   chunk on the extended slab, a key with buffers of its own.
+
+With the chunk buffers the rebuilds between groups run on persistent
+layout sets (``fused_cell.RebuildRunner``, ``BufferedRebuild``), which
+the plain twin (``_do_rebuild``) fills on the CPU. Their cases hold the
+returned layout too, bit for bit, count the groups
+(``REBUILD_BUFFERS``), hold that nothing returned aliases a set, and
+that the card's wrapper refuses what it cannot serve.
 """
 
 import dataclasses
@@ -154,3 +161,128 @@ def test_buffered_chunks_match_stateless(case, monkeypatch):
     else:
         assert plain == (fc.plan(eng.spec)[3], eng.spec.K, eng.spec.nx)
     assert not any(fcc.LAUNCHES.values())     # the CPU launches no kernel
+
+
+def _bits(t):
+    return t.view(torch.int32) if t.dtype == torch.float32 else t
+
+
+def _same_layout(want, got):
+    """Every tensor of two ``FusedLayout``s equal bit for bit."""
+    for name, a in want._asdict().items():
+        if torch.is_tensor(a):
+            b = getattr(got, name)
+            assert b.dtype == a.dtype and b.shape == a.shape, name
+            assert torch.equal(_bits(a), _bits(b)), name
+
+
+def _counted(eng):
+    """Count ``eng``'s ``_do_rebuild`` calls (one a group)."""
+    calls, plain = [0], eng._do_rebuild
+
+    def counted(*a):
+        calls[0] += 1
+        return plain(*a)
+
+    eng._do_rebuild = counted
+    return calls
+
+
+def _set_storage(eng):
+    """The data pointers of the engine's layout sets' allocations."""
+    return {b.mem.untyped_storage().data_ptr()
+            for b in eng._rebuilds._bufs.values()}
+
+
+def _tensors(r):
+    out = dict(r.state._asdict(), geom=r.geom, overflow=r.overflow)
+    out.update({f"cands.{k}": v for k, v in r.cands._asdict().items()
+                if torch.is_tensor(v) and k != "shear_tbt"})
+    return out
+
+
+@pytest.mark.parametrize("case", ["plain", "rollback", "split",
+                                  "two_intervals", "no_alias", "counter"])
+def test_layout_sets_match_stateless(case, monkeypatch):
+    """The engine's rebuilds on persistent layout sets against the
+    stateless path (``chunk_buffers`` off: ``_do_rebuild`` and the torch
+    pair count and overflow): the whole ``IntervalResult``, its layout
+    included, bit for bit, one rebuild a group. ``no_alias``: what an
+    interval returned (state, layout, pair count) is the caller's, left
+    as it was by two later intervals, and no layout returned lies in a
+    set; ``counter``: one key's sets serve every interval and a lane
+    switch (another g, mu on the same engine), one run a group."""
+    monkeypatch.setenv("SPH_SUB_STEPS", "4")
+    if case == "rollback":
+        monkeypatch.setenv("SPH_DRIFT_PREDICTOR", "0")
+    make, s0, window, _ = _engines("rollback" if case == "rollback"
+                                   else "plain")
+    n_iv = {"two_intervals": 2, "no_alias": 3, "counter": 3}.get(case, 1)
+    interval = np.float32(window)
+    ref, eng = make(), make()
+    ref.chunk_buffers = False
+    groups = _counted(ref)
+    s_ref = s_eng = eng.init(s0)[:3]
+    fcc.reset_launch_counts()
+    results = []
+    for i in range(n_iv):
+        kw = {}
+        if case == "counter" and i == 2:
+            kw = dict(g=2.0 * eng.cfg.gravity_g, mu=0.5 * eng.cfg.mu)
+        if case == "split":
+            want, got = _split(ref, s_ref, interval), _split(eng, s_eng,
+                                                             interval)
+        else:
+            want = ref.run_interval(*s_ref, interval, **kw)
+            got = eng.run_interval(*s_eng, interval, **kw)
+        _same(want, got)
+        _same_layout(want.cands, got.cands)
+        assert got.geom.dtype == want.geom.dtype == torch.int32
+        results.append((got, {k: v.clone() for k, v in
+                              _tensors(got).items()}))
+        s_ref = (want.state, want.cands, want.geom)
+        s_eng = (got.state, got.cands, got.geom)
+    rb = fcc.REBUILD_BUFFERS
+    assert rb["sets_built"] == len(eng._rebuilds._bufs) == 1
+    assert rb["runs"] == groups[0] > 0
+    if case == "rollback":
+        assert got.n_rollbacks > 0
+    sets = _set_storage(eng)
+    for got, snap in results:
+        assert got.cands.pidx.untyped_storage().data_ptr() not in sets
+        for k, v in _tensors(got).items():
+            assert torch.equal(_bits(v), _bits(snap[k])), k
+    assert not any(fcc.LAUNCHES.values())     # the CPU launches no kernel
+
+
+@pytest.mark.parametrize("what", ["device", "dtype", "shape", "card"])
+def test_rebuild_wrapper_refuses(what):
+    """The rebuild's wrapper (``RebuildBuffers.launch``) checks device,
+    dtype and shape of what it reads and runs on a CUDA card only: each
+    wrong input raises, and so do right inputs on the CPU, whose layout
+    sets the plain twin fills. Nothing falls back."""
+    cfg = _cfg()
+    scene = build_scene(cfg)
+    eng = PallasCellEngine(cfg, scene, "cpu")
+    s, lay, _, _ = eng.init(initial_state(cfg, scene, "cpu"))
+    cores = eng._scatter_all(lay, s)
+    bufs = fcc.RebuildBuffers(eng.spec, fc.plan(eng.spec)[0],
+                              cores["xH"].shape, cores["drP"].shape,
+                              torch.float32, torch.device("cpu"))
+    args = dict(pidx0=lay.pidx, hidx0=lay.hidx, xs=cores["xH"],
+                ys=cores["yH"], drs=cores["drP"], vxs=cores["vxH"],
+                vys=cores["vyH"], cnt=None, stat=eng._layout_statics(),
+                src_halo=True, first=True)
+    match = {"device": "expected a tensor on cpu",
+             "dtype": "expected torch.int64",
+             "shape": "expected shape",
+             "card": "runs on a CUDA card"}[what]
+    if what == "device":
+        args["vxs"] = torch.empty(cores["vxH"].shape, device="meta")
+    elif what == "dtype":
+        args["hidx0"] = lay.hidx.to(torch.int32)
+    elif what == "shape":
+        args["drs"] = cores["xH"]
+    with pytest.raises(ValueError, match=match):
+        bufs.launch(0, **args)
+    assert not any(fcc.LAUNCHES.values())
