@@ -134,24 +134,25 @@ Phases, each of which exits non-zero on failure before the last line:
 8. where cmake exists: the gather engine's operators in float64 on the
    card against the native C++ oracle (``utils/native_oracle.py``) within
    1e-9 of each output's scale; where it does not, a line says so.
-9. the chunk path on persistent buffers (``fused_cell.ChunkRunner``,
-   ``sph_chunk_run``) at the benchmark's two grids (its configurations
-   ``channel-dp0.01`` and ``channel-dp0.005``, their developed state from
-   a fixed seed): (i) three 128-step groups of an interval
-   (``max_steps``) with the shipping knobs, and with the predictor off
-   and a skin of 0.1 dp, which forces rollbacks, each bit-equal to the
-   stateless path (``chunk_buffers`` off: ``fused_chunk_call`` and the
-   stacked read) in steps, rollbacks, syncs, the clock, every ``State``
-   field, tau, v_max and pairs, with the same ``LAUNCHES``; (ii) the
+9. the interval path's runner on the card at the benchmark's two grids
+   (its configurations ``channel-dp0.01`` and ``channel-dp0.005``, their
+   developed state from a fixed seed), with the shipping knobs and with
+   the predictor off and a skin of 0.1 dp, which forces rollbacks: (i) a
+   group's runner (``fused_cell.ChunkRunner``, ``sph_chunk_run``)
+   through five calls, one of them not kept, each bit-equal to
+   ``fused_chunk_call`` (``sph_chunk``) and ``pair_drift_bounds`` from the
+   state it began in (every core, bx, by, the clock, the steps; one host
+   sync a call; the kept state whole after the call not kept); (ii) the
    drift kernel against ``pair_drift_bounds`` bit for bit (or both NaN)
    after a 4-step run: on the layout's references, on references with an
    all-empty 2 x 2 block of cells, and with a NaN velocity in one fluid
-   slot (a NaN position); ``CHUNK_BUFFERS`` printed. With the chunk
-   buffers the rebuilds run on the layout sets (``sph_rebuild``), so (i)
-   holds them too: ``LAUNCHES`` equal but for ``fused_rebuild``, one a
-   group, and ``REBUILD_BUFFERS`` one key's sets, one run a group
-   (printed); and an interval's ``cands`` and state unchanged after two
-   more intervals have run;
+   slot (a NaN position); (iii) the engine's interval to 384 steps
+   (``max_steps``, bound at a group's end): ``CHUNK_BUFFERS`` one key's
+   sets and one run a host sync, ``REBUILD_BUFFERS`` one key's sets and
+   one run a group (no plain rebuild), ``LAUNCHES`` the chunk once a host
+   sync, the rebuild once a group and the shear once, rollbacks where
+   forced (printed); and its ``cands`` and state unchanged after two more
+   intervals;
 10. the rebuild on persistent layout sets (``fused_cell.BufferedRebuild``,
    ``sph_rebuild``) against ``PallasCellEngine._do_rebuild`` at the
    benchmark's two grids, bit for bit in every array of the layout and
@@ -1309,7 +1310,7 @@ SWEEP_EQUAL = (2, 6)   # mu = 0.1 (config's) and 0.25
 BATCH_MUS = (0.05, 0.1, 0.2, 0.3)
 
 
-# phase 9: three rebuild groups of 128 steps
+# phase 9: the interval's steps (max_steps, bound at a group's end)
 RUNNER_STEPS = 384
 
 
@@ -1336,23 +1337,6 @@ def _developed(conf_name: str, device):
         **{k: inp[k].float() for k in ("x", "y", "vx", "vy", "rho",
                                        "drho_dt")})
     return cfg, scene, s0
-
-
-def _same_interval(what: str, r1, r2) -> None:
-    """``r2`` equal to ``r1`` bit for bit, or raise naming what differs."""
-    import torch
-    from sph_poiseuille_flow_torch.stepper import State
-    bad = [k for k in ("n_steps", "n_rollbacks", "n_syncs", "sub_len",
-                       "skin_guard", "t_local", "t_comp")
-           if getattr(r1, k) != getattr(r2, k)]
-    bad += [k for k in State._fields
-            if not torch.equal(getattr(r1.state, k), getattr(r2.state, k))]
-    bad += [k for k in ("tau_bottom", "tau_top", "v_max", "n_pairs",
-                        "overflow")
-            if not torch.equal(getattr(r1, k), getattr(r2, k))]
-    if bad:
-        raise AssertionError(f"{what}: the buffered chunk path differs "
-                             f"from the stateless one in {bad}")
 
 
 def _drift_bits(v) -> str:
@@ -1396,8 +1380,8 @@ def _runner_drift(device, label: str, cfg, scene, s0) -> None:
                              ("NaN position", own, vx_nan)):
         run = runner.group(spec, lay, dict(cores, vxH=vxH), np.float32(0.5),
                            scalars, drift)
-        st = run(4, np.float32(0.0), np.float32(0.0))[0]
-        bx, by, _, _, steps = run.read(None)
+        bx, by, _, _, steps, _ = run(4, np.float32(0.0), np.float32(0.0))
+        st = run.new
         if drift is own:
             want = fc.pair_drift_bounds(spec, lay, st["xP"], st["yP"])
         else:
@@ -1416,17 +1400,82 @@ def _runner_drift(device, label: str, cfg, scene, s0) -> None:
                                  "gave a finite bound")
 
 
-def _counted_rebuilds(eng) -> list:
-    """Count ``eng``'s ``_do_rebuild`` calls (the stateless path's
-    groups) in the one-element list returned."""
-    calls, plain = [0], eng._do_rebuild
+# phase 9's runner script: (n_sub, kept) a call; the third is not kept
+# (a rollback), the fourth runs from the kept state it left
+RUNNER_CALLS = ((16, True), (16, True), (16, False), (8, True), (1, True))
 
-    def counted(*a):
-        calls[0] += 1
+
+def _runner_script(what: str, eng, s0) -> int:
+    """A group's runner on the card (``ChunkRunner.group`` ->
+    ``sph_chunk_run``) through ``RUNNER_CALLS``, each call against
+    ``fused_chunk_call`` (``sph_chunk``) and ``pair_drift_bounds`` from
+    the state it began in, bit for bit: every core of the scratch set
+    (``cnt`` summed to ``fused_chunk_call``'s rows) and (bx, by, t,
+    t_comp, steps); one host sync a call; a call not kept leaves the kept
+    state whole. Returns the steps kept."""
+    import numpy as np
+    import torch
+    from sph_poiseuille_flow_torch.ops import fused_cell as fc
+
+    cfg, spec = eng.cfg, eng.spec
+    s, lay, _, _ = eng.init(s0)
+    interval = np.float32(0.5)
+    scalars = (cfg.rho0, cfg.p0, cfg.c_f, cfg.inv_sigma0,
+               cfg.transport_coeff, cfg.gravity_g, cfg.mu,
+               cfg.wall_visc_factor)
+    run = eng._chunks.group(spec, lay, eng._scatter_all(lay, s), interval,
+                            scalars,
+                            fc.DriftRef(lay.refx_p, lay.refy_p, lay.isf_c))
+    t = tc = np.float32(0.0)
+    done = 0
+    for i, (n_sub, keep) in enumerate(RUNNER_CALLS):
+        c = {k: v.clone() for k, v in run.state().items()}
+        st, aux, steps, t2, tc2 = fc.fused_chunk_call(
+            spec, lay, c["xH"], c["yH"], c["vxH"], c["vyH"], c["drP"], t, tc,
+            interval, n_sub, *scalars)
+        bx, by = fc.pair_drift_bounds(spec, lay, st["xP"], st["yP"])
+        want = [float(bx), float(by), float(t2), float(tc2), int(steps)]
+        *got, steps_g, syncs = run(n_sub, t, tc)
+        torch.cuda.synchronize()
+        got = [float(v) for v in got] + [steps_g]
+        ref = dict(st, **aux)
+        new = dict(run.new, cnt=fc._cnt_rows(spec, run.new["cnt"]))
+        bad = [k for k in ref if not _bit_equal(ref[k], new[k])]
+        if got != want:
+            bad.append(f"(bx, by, t, t_comp, steps) {got} against {want}")
+        if syncs != 1:
+            bad.append(f"{syncs} host syncs")
+        if keep:
+            run.keep()
+            t, tc = np.float32(got[2]), np.float32(got[3])
+            done += steps_g
+        else:
+            bad += [f"kept {k}" for k in c
+                    if not _bit_equal(c[k], run.state()[k])]
+        if bad:
+            raise AssertionError(f"{what} call {i} (n_sub {n_sub}): "
+                                 f"sph_chunk_run differs from "
+                                 f"fused_chunk_call in {bad}")
+    return done
+
+
+def _counted_groups(eng) -> tuple:
+    """Count ``eng``'s sub-chunk groups and its plain rebuilds
+    (``_do_rebuild``, which the card's layout sets never call), each in a
+    one-element list."""
+    groups, plains = [0], [0]
+    group, plain = eng._run_group, eng._do_rebuild
+
+    def counted_group(*a):
+        groups[0] += 1
+        return group(*a)
+
+    def counted_plain(*a):
+        plains[0] += 1
         return plain(*a)
 
-    eng._do_rebuild = counted
-    return calls
+    eng._run_group, eng._do_rebuild = counted_group, counted_plain
+    return groups, plains
 
 
 def _snapshot(r) -> dict:
@@ -1450,13 +1499,18 @@ def _unchanged(what: str, r, snap: dict) -> None:
 
 
 def phase_runner(device) -> dict:
-    """9. The chunk path on persistent buffers against the stateless
-    path, bit for bit, at the benchmark's two grids, with and without
-    forced rollbacks (the rebuild on its layout sets with it); the drift
-    kernel against ``pair_drift_bounds``; an interval's result unchanged
-    by later intervals."""
+    """9. The interval path's runner on the card, at the benchmark's two
+    grids, with the shipping knobs and with forced rollbacks: its calls
+    against ``fused_chunk_call`` and ``pair_drift_bounds`` bit for bit
+    (``_runner_script``); the drift kernel against ``pair_drift_bounds``
+    with empty cells and a NaN; the engine's interval: its counters
+    (``CHUNK_BUFFERS`` runs = host syncs, ``REBUILD_BUFFERS`` runs =
+    groups, ``LAUNCHES`` the chunk a sync, the rebuild a group and the
+    shear once), rollbacks where forced, and its result unchanged by
+    later intervals."""
     import numpy as np
     import torch
+    from sph_poiseuille_flow_torch.ops import fused_cell as fc
     from sph_poiseuille_flow_torch.ops import fused_cell_cuda as fcc
     from sph_poiseuille_flow_torch.stepper import PallasCellEngine
 
@@ -1467,66 +1521,74 @@ def phase_runner(device) -> dict:
         for case, knobs, predictor in (
                 ("shipping", {}, "1"),
                 ("rollback", dict(neighbor_skin=0.1 * cfg0.dp), "0")):
+            what = f"runner {conf} {case}"
             cfg = dataclasses.replace(cfg0, **knobs)
+            kept = _runner_script(what, PallasCellEngine(cfg, scene, device),
+                                  s0)
+            _say(f"{what}: {len(RUNNER_CALLS)} calls bit-equal to "
+                 f"fused_chunk_call and pair_drift_bounds, {kept} steps "
+                 "kept")
             old = os.environ.get("SPH_DRIFT_PREDICTOR")
             os.environ["SPH_DRIFT_PREDICTOR"] = predictor
             try:
-                res = []
-                for buffered in (False, True):
-                    eng = PallasCellEngine(cfg, scene, device)
-                    eng.chunk_buffers = buffered
-                    groups = _counted_rebuilds(eng)
-                    s, lay, geom, _ = eng.init(s0)
-                    fcc.reset_launch_counts()
-                    r = eng.run_interval(s, lay, geom, np.float32(0.5),
-                                         max_steps=RUNNER_STEPS)
-                    torch.cuda.synchronize()
-                    res.append((r, dict(fcc.LAUNCHES),
-                                dict(fcc.CHUNK_BUFFERS),
-                                dict(fcc.REBUILD_BUFFERS), groups[0], eng))
-                    if buffered:
-                        # what the call handed back is the caller's: two
-                        # more intervals leave it as it was
-                        snap = _snapshot(r)
-                        r3 = r
-                        for _ in range(2):
-                            r3 = eng.run_interval(r3.state, r3.cands,
-                                                  r3.geom, np.float32(0.5),
-                                                  max_steps=RUNNER_STEPS)
-                        torch.cuda.synchronize()
-                        _unchanged(f"runner {conf} {case}", r, snap)
+                eng = PallasCellEngine(cfg, scene, device)
+                groups, plains = _counted_groups(eng)
+                s, lay, geom, _ = eng.init(s0)
+                fcc.reset_launch_counts()
+                r = eng.run_interval(s, lay, geom, np.float32(0.5),
+                                     max_steps=RUNNER_STEPS)
+                torch.cuda.synchronize()
+                n_groups = groups[0]
+                launches = dict(fcc.LAUNCHES)
+                cb = dict(fcc.CHUNK_BUFFERS)
+                rb = dict(fcc.REBUILD_BUFFERS)
+                # what the call handed back is the caller's: two more
+                # intervals leave it as it was
+                snap = _snapshot(r)
+                r3 = r
+                for _ in range(2):
+                    r3 = eng.run_interval(r3.state, r3.cands, r3.geom,
+                                          np.float32(0.5),
+                                          max_steps=RUNNER_STEPS)
+                torch.cuda.synchronize()
+                _unchanged(what, r, snap)
             finally:
                 if old is None:
                     os.environ.pop("SPH_DRIFT_PREDICTOR", None)
                 else:
                     os.environ["SPH_DRIFT_PREDICTOR"] = old
-            (r1, l1, _, _, n_groups, _), (r2, l2, cb, rb, plain, _) = res
-            what = f"runner {conf} {case}"
-            _same_interval(what, r1, r2)
-            l2_rest = dict(l2, fused_rebuild=l1["fused_rebuild"])
-            if l1 != l2_rest or l2["fused_rebuild"] != n_groups:
-                raise AssertionError(f"{what}: launches {l2} against the "
-                                     f"stateless path's {l1} and "
-                                     f"{n_groups} groups")
-            if case == "rollback" and r2.n_rollbacks == 0:
+            want = dict.fromkeys(launches, 0)
+            chunk = fcc.launch_key("fused_chunk",
+                                   fc.chunk_form(eng.spec, eng.dtype)[0])
+            want.update({chunk: r.n_syncs, "fused_rebuild": n_groups,
+                         "fused_wall_shear": 1})
+            if launches != want:
+                raise AssertionError(f"{what}: launches {launches}, want "
+                                     f"{want}")
+            if r.n_steps < RUNNER_STEPS or r.skin_guard:
+                raise AssertionError(f"{what}: {r.n_steps} steps, guard "
+                                     f"{r.skin_guard}")
+            if case == "rollback" and r.n_rollbacks == 0:
                 raise AssertionError(f"{what}: no sub-chunk rolled back")
-            if cb["sets_built"] != 1 or cb["runs"] != r2.n_syncs:
+            if cb["sets_built"] != 1 or cb["runs"] != r.n_syncs:
                 raise AssertionError(f"{what}: CHUNK_BUFFERS {cb}, "
-                                     f"{r2.n_syncs} host syncs")
-            if rb["sets_built"] != 1 or rb["runs"] != n_groups or plain:
+                                     f"{r.n_syncs} host syncs")
+            if rb["sets_built"] != 1 or rb["runs"] != n_groups or plains[0]:
                 raise AssertionError(f"{what}: REBUILD_BUFFERS {rb}, "
-                                     f"{n_groups} groups, {plain} plain "
+                                     f"{n_groups} groups, {plains[0]} plain "
                                      "rebuilds")
-            _say(f"{what}: bit-equal, steps={r2.n_steps} "
-                 f"rollbacks={r2.n_rollbacks} syncs={r2.n_syncs} "
-                 f"groups={n_groups} CHUNK_BUFFERS={cb} "
-                 f"REBUILD_BUFFERS={rb}; cands and state unchanged after "
-                 "two more intervals")
-            out[f"{conf}:{case}"] = dict(steps=r2.n_steps,
-                                         rollbacks=r2.n_rollbacks,
-                                         syncs=r2.n_syncs, groups=n_groups,
+            _say(f"{what}: steps={r.n_steps} rollbacks={r.n_rollbacks} "
+                 f"syncs={r.n_syncs} groups={n_groups} CHUNK_BUFFERS={cb} "
+                 f"REBUILD_BUFFERS={rb} LAUNCHES chunk={launches[chunk]} "
+                 f"rebuild={launches['fused_rebuild']} shear="
+                 f"{launches['fused_wall_shear']}; cands and state "
+                 "unchanged after two more intervals")
+            out[f"{conf}:{case}"] = dict(steps=r.n_steps,
+                                         rollbacks=r.n_rollbacks,
+                                         syncs=r.n_syncs, groups=n_groups,
                                          **cb, rebuild_runs=rb["runs"],
-                                         rebuild_sets_built=rb["sets_built"])
+                                         rebuild_sets_built=rb["sets_built"],
+                                         runner_calls=len(RUNNER_CALLS))
     return out
 
 

@@ -31,13 +31,17 @@ Each plain sweep is a function of its own (``_sweep0_plain`` ..
 ``ops/probes.py`` can run a sweep range.
 
 The rebuild glue (slot assignment, packed scatter, takes) is plain
-torch here (``build_fused_layout``), as it is XLA in the JAX package. The
-engine's chunk path runs through ``ChunkRunner``: persistent buffers, and
-on the card one call a sub-chunk that also takes the drift guard's bounds
-(plain torch here: ``pair_drift_bounds``, the CPU path and the kernels'
-reference); its rebuilds between groups run through ``RebuildRunner`` on
-persistent layout sets, on the card one enqueued call a rebuild
-(``sph_rebuild``), bit-equal to the engine's ``_do_rebuild``.
+torch in ``build_fused_layout``, as it is XLA in the JAX package; init,
+the per-step path and the mesh's re-bin build their layouts with it. The
+engine's interval loop runs on persistent buffers instead. Its
+sub-chunks run through ``ChunkRunner``: on the card one call a
+sub-chunk (``sph_chunk_run``), the chunk and the drift guard's bounds
+together; on the CPU the plain twins fill the same buffers. Its rebuilds
+between groups run through ``RebuildRunner`` on persistent layout sets:
+on the card one enqueued call a rebuild (``sph_rebuild``), on the CPU
+the engine's ``_do_rebuild`` (``build_fused_layout``) fills the set.
+``fused_chunk_call`` and ``pair_drift_bounds`` stay as what a runner's
+call is held to bit for bit, ``_do_rebuild`` as what a rebuild is.
 """
 
 from __future__ import annotations
@@ -1104,26 +1108,27 @@ class ChunkRunner:
 
 
 class BufferedChunkRun:
-    """A sub-chunk group's runner (``stepper.SubChunkRun``'s protocol)
-    on a key's buffers (``ChunkRunner.group``): a call runs up to n_sub
-    steps from the kept state into the scratch set, ``read`` returns what
-    the call left on the host (bx, by, t, t_comp, steps), ``keep`` swaps
-    the sets (a rollback swaps nothing), ``state`` returns the kept state.
-    The kept set holds what the last kept call wrote until the next keep,
-    so a group that ends on a rollback, and the next group's carry, read
-    the aux cores of the last kept call. On the card a call is one
-    ``sph_chunk_run`` and one synchronize, the drift bounds taken there
-    beside the chunk; on the CPU the plain twins
+    """A sub-chunk group's runner (the one protocol of
+    ``stepper.PallasCellEngine._run_group``) on a key's buffers
+    (``ChunkRunner.group``): a call runs up to n_sub steps from the kept
+    state into the scratch set and returns on the host (bx, by, t,
+    t_comp, steps, host syncs: 1), ``keep`` swaps the sets (a rollback
+    swaps nothing), ``state`` returns the kept state, ``cnt`` per slot
+    (nyp, K, nx). The kept set holds what the last kept call wrote until
+    the next keep, so a group that ends on a rollback, and the next
+    group's carry, read the aux cores of the last kept call. On the card
+    a call is one ``sph_chunk_run`` and one synchronize, the drift bounds
+    taken there beside the chunk; on the CPU the plain twins
     (``fused_chunk_call_plain``'s loop, ``DriftRef.bounds``) fill the
     scratch set and one ``tolist`` reads what the card's record holds.
-    The trajectory is ``stepper.ChunkRun``'s, bit for bit."""
+    Each call is ``fused_chunk_call`` and ``pair_drift_bounds`` from the
+    state it began in, bit for bit."""
 
     def __init__(self, bufs, spec, lay, carry, interval_len, scalars,
                  drift, cache_slots, dt_limits, lay_key=None):
         self.cur, self.new = carry, None
         self.bufs, self.spec, self.lay = bufs, spec, lay
         self.interval, self.scalars, self.drift = interval_len, scalars, drift
-        self._last = None
         self._card = bufs.cores[0]["x"].is_cuda
         if self._card:
             bufs.bind(lay, lay_key)
@@ -1138,12 +1143,12 @@ class BufferedChunkRun:
         b = self.bufs
         inputs = [self.cur[k] for k in ("xH", "yH", "vxH", "vyH", "drP")]
         if self._card:
-            self._last = b.launch(self._c, inputs, (t_i, tc_i) + self._clock,
-                                  self._dyn, n_sub, self._drift)
+            got = b.launch(self._c, inputs, (t_i, tc_i) + self._clock,
+                           self._dyn, n_sub, self._drift)
         else:
-            self._last = self._run_plain(inputs, t_i, tc_i, n_sub)
+            got = self._run_plain(inputs, t_i, tc_i, n_sub)
         self.new = b.state(b.scratch)
-        return self.new, None, None, None, 0
+        return (*got, 1)
 
     def _run_plain(self, inputs, t_i, tc_i, n_sub):
         b = self.bufs
@@ -1164,23 +1169,12 @@ class BufferedChunkRun:
         vals = torch.stack([bx, by, t, tc, steps.to(t.dtype)]).tolist()
         return (*vals[:4], int(vals[4]))
 
-    def read(self, bounds, *_):
-        """The last call's (bx, by, t, t_comp, steps), already on the
-        host (``bounds`` is the caller's: the drift given at set-up
-        stands for it)."""
-        return self._last
-
     def keep(self) -> None:
         self.bufs.keep()
         self.cur = self.new
 
     def state(self) -> dict:
-        """The kept state, ``cnt`` as ``fused_chunk_call``'s:
-        (n_groups, L)."""
-        c = self.cur
-        if c["cnt"].dim() == 3:    # the buffers' count per slot
-            c = dict(c, cnt=_cnt_rows(self.spec, c["cnt"]))
-        return c
+        return self.cur
 
 
 class RebuildRunner:
@@ -1227,8 +1221,10 @@ class BufferedRebuild:
     ``totals`` gives the last kept pair count and the interval's overflow,
     ``detach`` a copy of a set's layout: nothing handed to the caller
     aliases a set. On the card a call is one ``sph_rebuild``, enqueued;
-    on the CPU the plain twin fills the set. The layouts, carries, counts
-    and flags are the plain twin's bit for bit."""
+    on the CPU the plain twin fills the set. Bit for bit, a call's layout
+    and carry are the plain twin's, its pair count is the sum of the kept
+    state's per-slot ``cnt`` (0 where nothing was kept) and its
+    overflow the OR of its layout's flag and every earlier call's."""
 
     def __init__(self, bufs, statics, shear, plain):
         self.bufs, self.statics, self.plain = bufs, statics, plain

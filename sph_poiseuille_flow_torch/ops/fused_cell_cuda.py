@@ -634,8 +634,10 @@ class ChunkBuffers:
     every step, so one serves both sets), the control record (on the
     device and in two pinned host copies), the drift bounds' cell table
     and the kernel constants per (spec, scalars), and ``launch`` runs a
-    sub-chunk as one ``sph_chunk_run``. On the CPU the caller fills the
-    scratch set (``fused_cell.ChunkRunner``)."""
+    sub-chunk as one ``sph_chunk_run``. On the CPU the runner
+    (``fused_cell.BufferedChunkRun``) fills the scratch set from the
+    plain twins. Either way the kept set is the engine's chunk state
+    between sub-chunks, its ``cnt`` per slot what the rebuild sums."""
 
     def __init__(self, spec, R: int, form: str, k_cut: int, halo, plain,
                  dtype, dev):

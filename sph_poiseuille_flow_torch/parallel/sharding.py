@@ -61,7 +61,7 @@ from ..ops.neighbors import gather_pack
 from ..ops.transport import transport_correction
 from ..ops.viscosity import viscous_force
 from ..stepper import (CellEngine, Engine, IntervalResult,
-                       PallasCellEngine, State, SubChunkRun, _t_add)
+                       PallasCellEngine, State, _t_add)
 from .virtual import ensure_devices, is_virtual
 
 AXIS = "shard"
@@ -894,22 +894,14 @@ class ShardedPallasEngine(PallasCellEngine):
                          if spec.skin > 0.0 else None)
                 run = self._chunk_run(sts[0], stat_h[0], occl[0], interval,
                                       scalars, drift)
-
-                def bounds(new, refx=refx, refy=refy, isf=isf):
-                    return self._drift_bounds(
-                        [dict(x=self._ip(new["xP"]), y=self._ip(new["yP"]))],
-                        refx, refy, isf)
             else:
                 run = _StepRun(self, sts, stat_h, occl, interval, consts,
-                               dt_cap)
-
-                def bounds(new, refx=refx, refy=refy, isf=isf):
-                    return self._drift_bounds(new, refx, refy, isf)
-
+                               dt_cap, (refx, refy, isf)
+                               if spec.skin > 0.0 else None)
             (t_local, t_comp, done_i, nrb, sub_len, syncs,
              kept) = self._run_group(
-                 run, bounds if spec.skin > 0.0 else None, interval,
-                 t_local, t_comp, sub_len, rb, sub_max)
+                 run, spec.skin > 0.0, interval, t_local, t_comp, sub_len,
+                 rb, sub_max)
             n_syncs += syncs
             n_kept += kept
             sts = (run.state() if self.n_dev > 1
@@ -1002,7 +994,7 @@ class ShardedPallasEngine(PallasCellEngine):
         seeds are the group-entry state in the chunk's own forms.
         ``drift``: the slab's drift references (``fused_cell.DriftRef``
         over its interior rows), None without a skin."""
-        ls, BIG, spec = self.slab_spec, pc._BIG_X, self.spec
+        ls = self.slab_spec
         halo = pc.halo_ify
 
         def ext(v, fill=0.0):
@@ -1010,22 +1002,24 @@ class ShardedPallasEngine(PallasCellEngine):
 
         shim, xH, yH, vxH, vyH, drP = self._slab_args([st], [stat_h],
                                                       [occl])[0]
-        Rl, _, ngl, _ = pc.plan(ls)
-        cnt_pad = torch.zeros((ngl * Rl, spec.nx), dtype=self.dtype,
-                              device=self.device)
-        cnt_pad[self.ghost:self.ghost + self.rows_loc] = st["cnt"]
+        # the runner's count per slot: the slab's row counts in rank 0
+        cnt = torch.zeros_like(drP)
+        cnt[self.ghost:self.ghost + self.rows_loc, 0] = st["cnt"]
+        # xP/yP: what a group that keeps no sub-chunk hands _carry_slab
         carry = dict(
             xH=xH, yH=yH, vxH=vxH, vyH=vyH, drP=drP,
+            xP=xH[1:-1, :, 1:-1], yP=yH[1:-1, :, 1:-1],
             **{k + "H": halo(ls, ext(st[k]))
                for k in ("vol", "b11", "b12", "b21", "b22")},
             **{k + "P": ext(st[k])
                for k in ("rho", "p", "fx", "fy", "fpx", "fpy")},
-            cnt=cnt_pad.reshape(ngl, Rl * spec.nx))
-        return self._sub_chunk_run(ls, shim, carry, interval, scalars,
-                                   drift, cache_slots=self.cache_slots)
+            cnt=cnt)
+        return self._chunks.group(ls, shim, carry, interval, scalars, drift,
+                                  self.cache_slots)
 
     def _carry_slab(self, c):
-        """A one-device chunk carry -> its slab's state dict."""
+        """A one-device chunk carry -> its slab's state dict, the count
+        per slot summed to the slab's (rows_loc, nx) rows."""
         ih, ip = self._ih, self._ip
         return dict(
             x=ip(c["xP"]), y=ip(c["yP"]), vx=ih(c["vxH"]), vy=ih(c["vyH"]),
@@ -1034,19 +1028,26 @@ class ShardedPallasEngine(PallasCellEngine):
                                            "b22")},
             **{k: ip(c[k + "P"])
                for k in ("rho", "p", "fx", "fy", "fpx", "fpy")},
-            cnt=self._cnt_rows(c["cnt"]))
+            cnt=torch.sum(ip(c["cnt"]), dim=1))
 
 
-class _StepRun(SubChunkRun):
-    """A group's sub-chunk runner on a multi-slab mesh: up to ``n_sub``
-    calls of ``ShardedPallasEngine._one_step`` (the JAX inner while
-    loop). The clock is read before a step only where the sub-chunk can
-    reach the output point (``n_sub`` steps at ``dt_cap`` reach it)."""
+class _StepRun:
+    """A group's sub-chunk runner on a multi-slab mesh (the protocol of
+    ``PallasCellEngine._run_group``): a call runs up to ``n_sub`` calls of
+    ``ShardedPallasEngine._one_step`` (the JAX inner while loop) from the
+    kept slab states, then reads the mesh-merged drift bounds of where it
+    got to (``drift``: the slabs' (refx, refy, isf); None: no skin,
+    bounds 0) and the clock in one host sync. The clock is read before a
+    step only where the sub-chunk can reach the output point (``n_sub``
+    steps at ``dt_cap`` reach it). ``keep`` makes the last call's states
+    the kept ones, ``state`` returns them."""
 
-    def __init__(self, engine, sts, stat_h, occl, interval, consts, dt_cap):
-        super().__init__(sts)
+    def __init__(self, engine, sts, stat_h, occl, interval, consts, dt_cap,
+                 drift):
+        self.cur, self.new = sts, None
         self.engine, self.stat_h, self.occl = engine, stat_h, occl
         self.interval, self.consts, self.dt_cap = interval, consts, dt_cap
+        self.drift = drift
 
     def __call__(self, n_sub, t_i, tc_i):
         eng = self.engine
@@ -1064,4 +1065,15 @@ class _StepRun(SubChunkRun):
                                      self.consts)
             done += 1
         self.new = s
-        return s, torch.tensor(done, device=eng.device), t, tc, syncs
+        zero = torch.zeros((), dtype=t.dtype, device=t.device)
+        bx, by = ((zero, zero) if self.drift is None
+                  else eng._drift_bounds(s, *self.drift))
+        # the one host sync of the sub-chunk
+        vals = torch.stack([bx, by, t, tc.to(t.device)]).tolist()
+        return (*vals, done, syncs + 1)
+
+    def keep(self):
+        self.cur = self.new
+
+    def state(self):
+        return self.cur

@@ -7,14 +7,18 @@ kick -> continuity -> positions, with the candidate rebuild after the
 step. The JAX package runs an output interval as nested
 ``lax.while_loop``s on device; here the host drives the same loops:
 
-* a sub-chunk is one ``fused_chunk_call`` (up to ``sub_steps`` steps, no
-  host sync inside on CUDA), followed by ``pair_drift_bounds``;
-* ONE host sync per sub-chunk reads (bx, by, t, t_comp, steps);
+* a sub-chunk group starts from a layout and a carry of cores and runs
+  sub-chunks through ``fused_cell.ChunkRunner``: a sub-chunk is up to
+  ``sub_steps`` steps and the drift bounds of their final positions,
+  on persistent buffers (on CUDA one ``sph_chunk_run``, no host sync
+  inside), read back in ONE host sync (bx, by, t, t_comp, steps);
 * the predictive soft stop, the 3/4-budget floor and the rollback with
   halving decide on the host, in float32 exactly as the JAX loop does;
-* a rollback simply drops the sub-chunk's outputs (the chunk leaves its
-  inputs intact);
-* every sub-chunk group ends in a ``build_fused_layout`` rebuild.
+* a rollback keeps the buffers' kept set (a sub-chunk writes only the
+  scratch set);
+* every group ends in a rebuild onto persistent layout sets
+  (``fused_cell.RebuildRunner``; on CUDA one enqueued ``sph_rebuild``),
+  which also keeps the pair count and the overflow flag.
 
 With ``step_log_every > 0`` the interval runs step by step instead (the
 JAX ``CellEngine._run_interval`` loop that ``PallasCellEngine`` falls back
@@ -615,56 +619,6 @@ class Engine(_PerStepEngine):
                           cfg.DL, mu, cfg.h, cfg.wall_visc_factor)
 
 
-class SubChunkRun:
-    """A group's sub-chunk runner (``PallasCellEngine._run_group``): a
-    call runs up to ``n_sub`` steps from the kept state and returns (what
-    it reached, steps, t, t_comp, host syncs); ``read`` brings what the
-    group's decision needs of it to the host; ``keep`` makes the last
-    call's state the kept one, ``state`` returns the kept state
-    (``fused_cell.BufferedChunkRun`` keeps the same protocol on
-    persistent buffers)."""
-
-    def __init__(self, cur):
-        self.cur, self.new = cur, None
-
-    def read(self, bounds, new, steps, t, t_comp):
-        """(bx, by, t, t_comp, steps) of a call's result on the host, in
-        one sync: the drift bounds (``bounds(new)``; 0 where ``bounds`` is
-        None) and the clock, in the clock's type."""
-        zero = torch.zeros((), dtype=t.dtype, device=t.device)
-        bx, by = (zero, zero) if bounds is None else bounds(new)
-        vals = torch.stack([bx, by, t, t_comp.to(t.device),
-                            steps.to(t.device, t.dtype)]).tolist()
-        return (*vals[:4], int(vals[4]))
-
-    def keep(self):
-        self.cur = self.new
-
-    def state(self):
-        return self.cur
-
-
-class ChunkRun(SubChunkRun):
-    """The chunk kernel over ``lay``'s cores from the kept carry (xH, yH,
-    vxH, vyH, drP and the aux cores); a call returns the chunk's state
-    cores, whose xP/yP the drift bounds read."""
-
-    def __init__(self, spec, lay, carry, interval, scalars,
-                 cache_slots: int = 0):
-        super().__init__(carry)
-        self.spec, self.lay, self.interval = spec, lay, interval
-        self.scalars, self.cache_slots = scalars, cache_slots
-
-    def __call__(self, n_sub, t_i, tc_i):
-        c = self.cur
-        st2, aux2, steps, t2, tc2 = pc.fused_chunk_call(
-            self.spec, self.lay, c["xH"], c["yH"], c["vxH"], c["vyH"],
-            c["drP"], t_i, tc_i, self.interval, n_sub, *self.scalars,
-            cache_slots=self.cache_slots)
-        self.new = dict(st2, **aux2)
-        return st2, steps, t2, tc2, 0
-
-
 class PallasCellEngine:
     """The fused cell-layout engine (the JAX package's flagship): every
     physics step runs through the three fused kernels of
@@ -696,12 +650,6 @@ class PallasCellEngine:
         self._wall_y = torch.as_tensor(scene.y, dtype=dtype,
                                        device=self.device)
         self._shear = None
-        # the chunk path's persistent buffers, and the rebuild's layout
-        # sets beside them; False runs every sub-chunk through the
-        # stateless fused_chunk_call (ChunkRun) and every rebuild through
-        # _do_rebuild instead: the reference the tests and chip_smoke.py
-        # hold the buffers to
-        self.chunk_buffers = True
         self._chunks = pc.ChunkRunner()
         self._rebuilds = pc.RebuildRunner()
         self._statics = None
@@ -899,26 +847,16 @@ class PallasCellEngine:
         return rb, min(rb, int(os.environ.get("SPH_SUB_STEPS", "")
                                or getattr(self.cfg, "sub_steps", 16)))
 
-    def _sub_chunk_run(self, spec, lay, carry, interval, scalars, drift,
-                       cache_slots: int = 0, lay_key=None):
-        """A group's chunk-kernel runner: on the persistent buffers
-        (``fused_cell.BufferedChunkRun``; ``lay_key``: see
-        ``ChunkRunner.group``), or with ``chunk_buffers`` off through the
-        stateless ``fused_chunk_call`` (``ChunkRun``)."""
-        if self.chunk_buffers:
-            return self._chunks.group(spec, lay, carry, interval, scalars,
-                                      drift, cache_slots, lay_key)
-        return ChunkRun(spec, lay, carry, interval, scalars, cache_slots)
-
-    def _run_group(self, run, bounds, interval, t_i, tc_i, sub_len, rb,
+    def _run_group(self, run, skin, interval, t_i, tc_i, sub_len, rb,
                    sub_max):
         """One sub-chunk group of the chunk design (the JAX loop over
         ``sub_cond``/``sub_body``, stepper.py:834-945), which the y-slab
-        engine shares. ``run(n_sub, t, t_comp)
-        -> (new, steps, t, t_comp, host syncs)`` runs up to n_sub steps
-        from its kept state; ``bounds(new)`` gives the (bx, by) drift
-        bounds of what it returned (``None``: no skin). After each
-        sub-chunk one host sync reads the bounds and the clock in the
+        engine shares. ``run(n_sub, t, t_comp) -> (bx, by, t, t_comp,
+        steps, host syncs)`` runs up to n_sub steps from its kept state
+        and returns on the host the drift bounds of where it got to (0
+        without a skin), the clock and the steps it took, and the host
+        syncs it took, its final read included; ``skin``: whether the
+        spec has a drift budget. The bounds and the clock decide in the
         engine's float type: a genuine crossing rolls the sub-chunk back
         (not kept; the next is half as long), the predictive stop (1.5x the
         last increment) and the 3/4-consumed floor end the group before
@@ -940,13 +878,10 @@ class PallasCellEngine:
         bp = (f(0.0), f(0.0))
         while not soft and done_i < rb and t_i < interval:
             n_sub = min(slen, rb - done_i)
-            *got, syncs = run(n_sub, t_i, tc_i)
+            *vals, steps, syncs = run(n_sub, t_i, tc_i)
             n_syncs += syncs
-            # the one host sync of the sub-chunk
-            *vals, steps = run.read(bounds, *got)
-            n_syncs += 1
             bx, by, t2, tc2 = (f(v) for v in vals)
-            if bounds is not None:
+            if skin:
                 # a genuine crossing rolls the sub-chunk back; the
                 # PREDICTIVE stop (1.5x the last increment) and the
                 # 3/4-consumed floor schedule rebuilds before that
@@ -1002,7 +937,6 @@ class PallasCellEngine:
                    cfg.transport_coeff, g, mu, cfg.wall_visc_factor)
         interval = f(interval_len)
         rb, sub_max = self._group_lengths()
-        R, L, n_groups, nyp = pc.plan(spec)
 
         t_local = f(0.0) if t_local0 is None else f(t_local0)
         t_comp = f(0.0) if t_comp0 is None else f(t_comp0)
@@ -1013,45 +947,27 @@ class PallasCellEngine:
         npairs = torch.as_tensor(geom, device=self.device).to(torch.int32)
         n_steps, n_roll, n_syncs, n_kept = 0, 0, 0, 0
         overflow = lay.overflow
-        # with the chunk buffers the rebuilds write persistent layout sets
-        # (fused_cell.BufferedRebuild), which also keep the pair count and
-        # the overflow; else _do_rebuild and torch ops take them
-        sets = (self._rebuilds.interval(spec, cores, self._layout_statics(),
-                                        self._shear, self._do_rebuild)
-                if self.chunk_buffers else None)
+        # the rebuilds write persistent layout sets, which also keep the
+        # pair count and the overflow
+        sets = self._rebuilds.interval(spec, cores, self._layout_statics(),
+                                       self._shear, self._do_rebuild)
         lay_key = None
 
         while t_local < interval and (max_steps is None
                                       or n_steps < int(max_steps)):
-            st = cores if sets is not None else dict(
-                cores, xP=cores["xH"][1:-1, :, 1:-1],
-                yP=cores["yH"][1:-1, :, 1:-1],
-                cnt=torch.zeros((n_groups, L), dtype=self.dtype,
-                                device=self.device))
             drift = (pc.DriftRef(lay.refx_p, lay.refy_p, lay.isf_c)
                      if spec.skin > 0.0 else None)
-            run = self._sub_chunk_run(spec, lay, st, interval, scalars,
-                                      drift, lay_key=lay_key)
-
-            def bounds(new, lay=lay):
-                return pc.pair_drift_bounds(spec, lay, new["xP"], new["yP"])
-
+            run = self._chunks.group(spec, lay, cores, interval, scalars,
+                                     drift, lay_key=lay_key)
             (t_local, t_comp, done_i, nrb, sub_len, syncs,
              kept) = self._run_group(
-                 run, bounds if spec.skin > 0.0 else None, interval,
-                 t_local, t_comp, sub_len, rb, sub_max)
+                 run, spec.skin > 0.0, interval, t_local, t_comp, sub_len,
+                 rb, sub_max)
             n_syncs += syncs
             n_kept += kept
-            if sets is None:
-                st = run.state()
-                new_lay, rebuilt = self._do_rebuild(lay, st)
-                npairs = torch.round(torch.sum(st["cnt"])).to(torch.int32)
-                overflow = torch.logical_or(overflow, new_lay.overflow)
-            else:
-                carry, st = st, run.cur
-                with torch.profiler.record_function(REBUILD_SPAN):
-                    new_lay, rebuilt, lay_key = sets(lay, st,
-                                                     st is not carry)
+            st = run.state()
+            with torch.profiler.record_function(REBUILD_SPAN):
+                new_lay, rebuilt, lay_key = sets(lay, st, st is not cores)
             cores = dict(rebuilt, **{k: st[k] for k in (
                 "rhoP", "pP", "fxP", "fyP", "fpxP", "fpyP", "volH", "b11H",
                 "b12H", "b21H", "b22H")})
@@ -1059,7 +975,7 @@ class PallasCellEngine:
             lay = new_lay
             n_steps += done_i
             n_roll += nrb
-        if sets is not None and not sets.first:
+        if not sets.first:
             npairs, overflow = sets.totals(overflow)
 
         def tk(core, idx):
@@ -1083,8 +999,7 @@ class PallasCellEngine:
         nf = spec.n_fluid
         v_max = torch.sqrt(torch.max(state.vx[:nf] ** 2
                                      + state.vy[:nf] ** 2))
-        if sets is not None:
-            lay = sets.detach(lay)
+        lay = sets.detach(lay)
         return IntervalResult(
             state=state, cands=lay, geom=npairs, tau_bottom=tau_b,
             tau_top=tau_t, n_steps=n_steps, overflow=overflow,

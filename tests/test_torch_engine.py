@@ -133,10 +133,9 @@ class _CrossingRun:
 
     def __call__(self, n_sub, t, t_comp):
         self.calls.append(n_sub)
-        return None, n_sub, np.float32(t + 1e-4 * n_sub), t_comp, 1
-
-    def read(self, bounds, new, steps, t, t_comp):
-        return np.float32(0.0), np.float32(1.2e-3), t, t_comp, steps
+        # two host syncs: one inside the call and its final read
+        return (np.float32(0.0), np.float32(1.2e-3),
+                np.float32(t + 1e-4 * n_sub), t_comp, n_sub, 2)
 
     def keep(self):
         self.kept += 1
@@ -157,7 +156,7 @@ def test_group_crossing(sub_len, steps, kept, rollbacks, next_len):
         spec=types.SimpleNamespace(skin_x=1e-3, skin_y=1e-3))
     run = _CrossingRun()
     t, _, done, nrb, nxt, syncs, n_kept = PallasCellEngine._run_group(
-        eng, run, lambda new: None, np.float32(0.5), np.float32(0.0),
+        eng, run, True, np.float32(0.5), np.float32(0.0),
         np.float32(0.0), sub_len, 128, 16)
     assert run.calls == [sub_len]
     assert (done, run.kept, n_kept, nrb, nxt, syncs) == (

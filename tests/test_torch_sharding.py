@@ -121,11 +121,10 @@ def test_sharded_fused_matches_single_fused(tall, n_dev, ghost):
     assert_same_interval(r1, run(eng, s0, 0.02))
 
 
-def test_sharded_fused_rollback_matches_single(monkeypatch):
-    """Rollback with backoff under the slab decomposition: the predictor
-    off, a small skin, a moving state; the same rollbacks and the same
-    trajectory as one device."""
-    monkeypatch.setenv("SPH_DRIFT_PREDICTOR", "0")
+def _rollback_start():
+    """A small skin and a moving state (the channel's profile and a
+    seeded transverse noise): with the predictor off, sub-chunks roll
+    back."""
     cfg = tall_cfg(neighbor_skin=0.12 * 0.05, rebuild_every=16)
     scene = build_scene(cfg)
     nf = scene.n_fluid
@@ -137,10 +136,34 @@ def test_sharded_fused_rollback_matches_single(monkeypatch):
     vy[:nf] = rng.normal(0, 2.0, nf)
     s0 = initial_state(cfg, scene, "cpu")._replace(
         vx=torch.tensor(vx), vy=torch.tensor(vy))
+    return cfg, scene, s0
+
+
+def test_sharded_fused_rollback_matches_single(monkeypatch):
+    """Rollback with backoff under the slab decomposition: the predictor
+    off, a small skin, a moving state; the same rollbacks and the same
+    trajectory as one device."""
+    monkeypatch.setenv("SPH_DRIFT_PREDICTOR", "0")
+    cfg, scene, s0 = _rollback_start()
     r1 = run(PallasCellEngine(cfg, scene, "cpu"), s0, 0.006)
     r2 = run(ShardedPallasEngine(cfg, scene, cpu_mesh(2)), s0, 0.006)
     assert r1.n_rollbacks > 0
     assert r2.skin_guard == r1.skin_guard
+    assert_same_interval(r1, r2)
+
+
+def test_one_slab_rollback_matches_single(monkeypatch):
+    """The chunk on one extended slab (one device, ghost 4) under the
+    same forced rollbacks: a group whose first sub-chunk rolls back keeps
+    nothing and re-bins from its carry, and the trajectory is one
+    device's; the slab loop takes one host sync more, its jump flag."""
+    monkeypatch.setenv("SPH_DRIFT_PREDICTOR", "0")
+    cfg, scene, s0 = _rollback_start()
+    r1 = run(PallasCellEngine(cfg, scene, "cpu"), s0, 0.006)
+    r2 = run(ShardedPallasEngine(cfg, scene, cpu_mesh(1), ghost=4), s0,
+             0.006)
+    assert r1.n_rollbacks > 0
+    assert r2.n_syncs == r1.n_syncs + 1
     assert_same_interval(r1, r2)
 
 
